@@ -1,5 +1,6 @@
-"""Config dataclasses of the FL slice: the paper's CNN families, the
-wireless channel, the compression schedule and the PFELS hyper-parameters.
+"""Config dataclasses: the LLM architectures (``ModelConfig`` with its
+SSM and MoE parts), the paper's CNN families, the wireless channel, the
+compression schedule and the PFELS hyper-parameters.
 
 A copy of the reference's ``repro/configs/base.py`` (same fields,
 defaults and validation), kept here so the port imports nothing of the
@@ -9,8 +10,151 @@ runs. Configs are plain frozen dataclasses.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_ff: int                  # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # experts are padded up to a multiple of the `model` mesh axis for
+    # expert-parallel sharding; routing masks the pads.
+    padded_experts: Optional[int] = None
+
+    def experts_padded(self, model_axis: int) -> int:
+        if self.padded_experts is not None:
+            return self.padded_experts
+        e = self.num_experts
+        return ((e + model_axis - 1) // model_axis) * model_axis
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128            # N (SSD state size)
+    head_dim: int = 64              # P per-head channel dim
+    num_heads: Optional[int] = None  # derived: d_inner / head_dim if None
+    expand: int = 2                 # d_inner = expand * d_model
+    chunk_size: int = 128           # SSD chunk length (MXU-aligned)
+    conv_width: int = 4             # short causal conv width
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One transformer-family architecture.
+
+    ``block_pattern`` is a tuple of block kinds, repeated ``n_repeat`` times to
+    form the full stack; stacked params are scanned with ``lax.scan``.
+    Block kinds: "attn" (attention + dense MLP), "moe" (attention + MoE MLP),
+    "mamba" (Mamba2 SSD block), "attn_only", "mlp_only".
+    """
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    block_pattern: Tuple[str, ...] = ("attn",)
+    n_repeat: Optional[int] = None  # default n_layers // len(block_pattern)
+    # attention details
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    mrope: bool = False             # M-RoPE (qwen2-vl): 3-D t/h/w position ids
+    sliding_window: Optional[int] = None   # if set, training attn is windowed
+    long_context_window: int = 8192        # window used for long_500k decode
+    mlp_act: str = "swiglu"         # swiglu | gelu
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    attn_block_kv: int = 512        # flash-attention KV block (perf knob)
+    # "f32": norm computed fully in f32 (cotangents become f32 -> f32
+    # backward all-reduces); "stats_f32": only the statistics in f32, the
+    # scaling applied in the input dtype (bf16 cotangents; perf knob)
+    norm_impl: str = "f32"
+    # "2d": fsdp(data) x tensor(model); "fsdp": pure FSDP over data x model
+    # (tensor parallelism off — wins when activations >> params, §Perf)
+    parallelism: str = "2d"
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # encoder-decoder (whisper): encoder consumes stub frame embeddings
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500         # stub frontend frames
+    # vlm: stub vision prefix of patch embeddings
+    vision_prefix: int = 0          # #patch-embedding tokens prepended
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    # provenance
+    source: str = ""
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def resolved_repeat(self) -> int:
+        if self.n_repeat is not None:
+            return self.n_repeat
+        assert self.n_layers % len(self.block_pattern) == 0, (
+            f"{self.name}: n_layers {self.n_layers} not divisible by "
+            f"pattern {self.block_pattern}")
+        return self.n_layers // len(self.block_pattern)
+
+    def with_reduced(self, **kw) -> "ModelConfig":
+        """A reduced variant of the same family for CPU smoke tests."""
+        return dataclasses.replace(self, **kw)
+
+    def param_count_estimate(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS and for
+        PFELS dimension d); exact counts come from the built pytree."""
+        hd = self.resolved_head_dim()
+        d = self.d_model
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        mlp_dense = 3 * d * self.d_ff if self.mlp_act == "swiglu" else 2 * d * self.d_ff
+        total = 0
+        rep = self.resolved_repeat()
+        for kind in self.block_pattern:
+            if kind == "attn":
+                total += attn + mlp_dense
+            elif kind == "moe":
+                assert self.moe is not None
+                e = self.moe.num_experts
+                total += attn + e * 3 * d * self.moe.expert_ff + d * e
+            elif kind == "mamba":
+                assert self.ssm is not None
+                dinner = self.ssm.expand * d
+                nh = self.ssm.num_heads or dinner // self.ssm.head_dim
+                # in_proj (z,x,B,C,dt) + out_proj + conv
+                total += d * (2 * dinner + 2 * self.ssm.state_dim + nh) \
+                    + dinner * d + self.ssm.conv_width * dinner
+        total *= rep
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.is_encoder_decoder:
+            enc = (attn + mlp_dense) * self.n_encoder_layers
+            dec_cross = (attn) * self.n_layers     # cross-attn blocks
+            total += enc + dec_cross
+        return total
+
+    def active_param_count_estimate(self) -> int:
+        """Active params per token (MoE: top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count_estimate()
+        full = self.param_count_estimate()
+        d, e, k = self.d_model, self.moe.num_experts, self.moe.top_k
+        rep = self.resolved_repeat() * sum(1 for b in self.block_pattern if b == "moe")
+        expert_params = rep * e * 3 * d * self.moe.expert_ff
+        active_expert = rep * k * 3 * d * self.moe.expert_ff
+        return full - expert_params + active_expert
+
 
 
 @dataclass(frozen=True)

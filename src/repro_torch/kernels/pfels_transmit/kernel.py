@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._route import on_cpu
 from repro_torch.kernels.pfels_transmit import ref
 
 SOURCE = "pfels_transmit"
@@ -51,19 +52,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: "
-                         f"{sorted(map(str, devices))}")
-    dev = next(iter(devices))
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
 def _check(name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -83,7 +71,7 @@ def client_sumsq(u: torch.Tensor) -> torch.Tensor:
     """u: (r, d) f32 -> (r,) per-client sums of squares."""
     if u.ndim != 2:
         raise ValueError(f"u must be (r, d), got {tuple(u.shape)}")
-    if _on_cpu(u):
+    if on_cpu(u):
         return ref.client_sumsq_ref(u)
     r, d = u.shape
     if r < 1 or d < 1:
@@ -109,7 +97,7 @@ def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
     f32 -> (y (d,), energy ()). See ``ref.fused_combine_ref``."""
     if u.ndim != 2 or gains_mat.ndim != 2:
         raise ValueError("u and gains_mat must be 2-D")
-    if _on_cpu(u, mask, z, gains_mat, tx, txm):
+    if on_cpu(u, mask, z, gains_mat, tx, txm):
         return ref.fused_combine_ref(u, mask, z, gains_mat, tx, txm)
     r, d = u.shape
     m_ant = gains_mat.shape[1]

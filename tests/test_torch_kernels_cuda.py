@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: each against its plain torch
+"""The port's CUDA kernels on the card (the PFELS transmit pair, the SSD
+chunk scan and the flash-attention forward): each against its plain torch
 version, bit-identical run to run, counted, and refusing what it does not
 take. Every test needs a CUDA device and skips without one; this file
 imports neither JAX nor the reference, so it runs on a GPU machine that
@@ -7,12 +8,20 @@ has only the port's dependencies:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.configs import reduced_config
 from repro_torch.core import aggregation
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.pfels_transmit import kernel, ops, ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models import transformer as T
 
 # (r, d, M): ragged d, r in {1, 3, 32}, M in {1, 4}
 SHAPES = [(1, 4100, 1), (3, 4100, 4), (4, 37, 1), (32, 100_003, 1),
@@ -94,3 +103,150 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernel.fused_combine(u, mask[:-1], z, gains, tx, txm)
     with pytest.raises(ValueError, match="several devices"):
         kernel.fused_combine(u, mask.cpu(), z, gains, tx, txm)
+
+
+# ------------------------------------------------ ssd_scan and flash_attn
+
+# (b, s, h, p, n, chunk): N and P in {32, 64, 128}, one chunk, several,
+# chunks shorter than a pass of 32 rows
+SSD_SHAPES = [(1, 64, 2, 32, 32, 32), (2, 96, 3, 64, 64, 32),
+              (1, 256, 2, 64, 128, 128), (2, 40, 2, 32, 32, 8),
+              (1, 128, 2, 128, 64, 64)]
+# the plain version sums in another order: a few ulp of max|y| over the
+# sequence
+SSD_TOL = 1e-5
+
+
+def _ssd_inputs(b, s, h, p, n, device, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=device) - 1.0)
+    a = -torch.exp(0.5 * torch.randn((h,), generator=g, device=device))
+    bm = (torch.randn((b, s, n), generator=g, device=device) / 4).to(dtype)
+    cm = (torch.randn((b, s, n), generator=g, device=device) / 4).to(dtype)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain_and_is_deterministic(cuda, shape, dtype):
+    b, s, h, p, n, chunk = shape
+    args = _ssd_inputs(b, s, h, p, n, cuda, dtype)
+    before = ssd_kernel.LAUNCHES["ssd_scan"]
+    y1, s1 = ssd_kernel.ssd_scan(*args, chunk=chunk)
+    y2, s2 = ssd_kernel.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_scan"] == before + 2
+    y_p, s_p = ssd_ref.ssd_chunked(*args, chunk)
+    torch.testing.assert_close(y1, y_p, rtol=0,
+                               atol=SSD_TOL * float(y_p.abs().max()))
+    torch.testing.assert_close(s1, s_p, rtol=0,
+                               atol=SSD_TOL * float(s_p.abs().max()))
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_takes_strided_model_views(cuda):
+    """The model passes x, B and C as views into one projection."""
+    b, s, h, p, n = 2, 64, 4, 32, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xbc = torch.randn((b, s, h * p + 2 * n), generator=g, device=cuda)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.rand((b, s, h), generator=g, device=cuda) * 0.1
+    a = -torch.ones((h,), device=cuda)
+    y, st = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    y_p, s_p = ssd_ref.ssd_chunked(x.contiguous(), dt, a, bm.contiguous(),
+                                   cm.contiguous(), 32)
+    torch.testing.assert_close(y, y_p, rtol=0,
+                               atol=SSD_TOL * float(y_p.abs().max()))
+    torch.testing.assert_close(st, s_p, rtol=0,
+                               atol=SSD_TOL * float(s_p.abs().max()))
+
+
+def test_ssd_scan_refuses_what_it_cannot_hold(cuda):
+    args = _ssd_inputs(1, 256, 2, 128, 128, cuda, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_kernel.ssd_scan(*args, chunk=128)
+    with pytest.raises(ValueError, match="does not divide"):
+        ssd_kernel.ssd_scan(*args, chunk=96)
+    args = _ssd_inputs(1, 64, 2, 48, 32, cuda, torch.float32)
+    with pytest.raises(ValueError, match="P and N"):
+        ssd_kernel.ssd_scan(*args, chunk=32)
+    x, dt, a, bm, cm = _ssd_inputs(1, 64, 2, 32, 32, cuda, torch.float32)
+    with pytest.raises(TypeError, match="share a dtype"):
+        ssd_kernel.ssd_scan(x, dt, a, bm.bfloat16(), cm, chunk=32)
+    with pytest.raises(ValueError, match="chunks up to"):
+        ssd_kernel.ssd_scan(*_ssd_inputs(1, 256, 1, 32, 32, cuda,
+                                         torch.float32), chunk=256)
+
+
+# (b, sq, skv, h, hkv, dh, causal, window): MHA and GQA, Dh 64 and 80,
+# ragged tiles, Sq < Skv, a window, no mask
+FLASH_CASES = [(1, 100, 100, 4, 4, 64, True, None),
+               (2, 130, 130, 8, 2, 80, True, None),
+               (1, 50, 77, 4, 2, 64, True, None),
+               (1, 200, 200, 4, 4, 80, True, 37),
+               (2, 64, 96, 2, 1, 128, False, None)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_matches_plain_and_is_deterministic(cuda, case, dtype):
+    b, sq, skv, h, hkv, dh, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn((b, sq, h, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, hkv, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, hkv, dh), generator=g, device=cuda).to(dtype)
+    before = flash_kernel.LAUNCHES["flash_attention_fwd"]
+    o1 = flash_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    o2 = flash_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES["flash_attention_fwd"] == before + 2
+    assert o1.dtype == dtype and torch.equal(o1, o2)
+    want = flash_ref.attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    # f32: another summation order (1e-5); bf16: the output's rounding,
+    # at most one bf16 ulp, 2^-7 of the value
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(o1.float(), want, rtol=rtol, atol=1e-5)
+
+
+def test_flash_attn_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((1, 16, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="Dh"):
+        flash_kernel.flash_attention_fwd(q, q, q)
+    q = torch.randn((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_attention_fwd(q.transpose(1, 2).contiguous()
+                                         .transpose(1, 2), q, q)
+    with pytest.raises(TypeError, match="share a dtype"):
+        flash_kernel.flash_attention_fwd(q, q.bfloat16(), q)
+
+
+def test_reduced_prefill_on_the_card_goes_through_both_kernels(cuda):
+    """A reduced zamba2 prefill on the card (kernels) against the same
+    params on the CPU (plain versions), in f32."""
+    cfg = dataclasses.replace(reduced_config("zamba2-2.7b"),
+                              dtype="float32", param_dtype="float32")
+    params = T.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+    toks = prng.randint(prng.PRNGKey(1, "cpu"), (2, 64), 0, cfg.vocab_size)
+    want, _, _ = T.prefill(params, cfg, {"tokens": toks})
+    on_card = _to(params, cuda)
+    ssd_kernel.reset_launch_counts()
+    flash_kernel.reset_launch_counts()
+    got, caches, _ = T.prefill(on_card, cfg, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_scan"] == 1
+    assert flash_kernel.LAUNCHES["flash_attention_fwd"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
