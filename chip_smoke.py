@@ -17,18 +17,32 @@ Phases, each printing one JSON line:
    PFELS pair at r = 32, d = 9,222,858; ``ssd_scan`` at zamba2-2.7b's
    (B 8, S 2048, H 80, P 64, N 64) and mamba2-130m's (H 24, N 128) prefill;
    ``flash_attention_fwd`` at zamba2-2.7b's (B 8, S 2048, H = Hkv = 32,
-   Dh 80), beside ``scaled_dot_product_attention``.
+   Dh 80), beside ``scaled_dot_product_attention``; ``clip_norm``,
+   ``randk_gather`` and ``aircomp_combine`` at ragged small shapes (f32
+   and bf16, the combine with duplicate rows too) and at the VGG-11
+   update padded to 72,054 rows of 128 lanes, with the 21,616 rand-k rows
+   of p = 0.3.
 4. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
    VGG-11 (d = 9,222,858) with N = 1000 clients of 50 CIFAR-size
    synthetic images, r = 32, tau = 5, transmit clip 0.25, fused kernels,
    3 rounds. Launch counters are zeroed just before and read just after.
-5. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
-   (kernels) against unfused (plain torch), and against the committed
-   reference digests.
-6. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
+5. ``kernel_api``: the path of the three row kernels, the public kernel
+   API (``clip_flat``, ``row_indices_from_coords``, ``gather_rows``,
+   ``combine``), once at VGG-11 width as one transmit and combine;
+   counters zeroed just before and read just after; checked against the
+   same chain through the plain versions.
+6. ``baselines``: ``Trainer.run`` of WFL-P, WFL-PDP, DP-FedAvg, FedAvg and
+   PFELS with error feedback at the main path's config, 2 rounds each:
+   s/round, peak memory, metrics and every kernel's launches (the EF run
+   holds the 36.9 GB residual bank, freed before the serve phases);
+   ``--profile`` adds one profiled round of each.
+7. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
+   (kernels) against unfused (plain torch), and the PFELS, baseline and
+   error-feedback runs against the committed reference digests.
+8. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
    prefill and 8 greedy decode steps on the card (kernels) against the
    same params on the CPU (plain versions).
-7. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
+9. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
    width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
@@ -62,6 +76,18 @@ PEAK_BF16_FLOP_PER_S = 989e12
 MAIN_R, MAIN_D = 32, 9_222_858
 
 
+def _kernel_modules():
+    """The kernel wrapper modules, one per CUDA source."""
+    from repro_torch.kernels.aircomp_combine import kernel as comb_kernel
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
+    from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.kernels.randk_gather import kernel as gather_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    return (kernel, ssd_kernel, flash_kernel, clip_kernel, gather_kernel,
+            comb_kernel)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -92,6 +118,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def cold_ms(fn, reps: int = 20, warmup: int = 3,
+            flush_bytes: int = 512 * 2 ** 20) -> float:
+    """Median CUDA-event time of one call that finds the 50 MB L2 cold:
+    before each call the card writes ``flush_bytes`` of scratch, which
+    evicts the cache and keeps the card busy while the host enqueues the
+    call, so the pair of events times the device work and not the host's
+    time before the launch."""
+    import torch
+    flush = torch.empty((flush_bytes // 4,), dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del flush
+    return statistics.median(times)
+
+
 def bound_ms(n_bytes: float, n_flops: float,
              peak_flop_per_s: float = PEAK_F32_FLOP_PER_S):
     """The least time for the work: bytes over the memory rate or
@@ -118,12 +171,8 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn import kernel as flash_kernel
-    from repro_torch.kernels.pfels_transmit import kernel
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     t0 = time.perf_counter()
-    paths = _build.build([kernel.SOURCE, ssd_kernel.SOURCE,
-                          flash_kernel.SOURCE])
+    paths = _build.build([mod.SOURCE for mod in _kernel_modules()])
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.BUILD_LOGS.values()
              for ln in log.splitlines()
@@ -133,12 +182,12 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _kernel_inputs(r, d, m_ant, seed, txm_zero):
+def _kernel_inputs(r, d, m_ant, seed, txm_zero, density=0.3):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     u = 0.01 * torch.randn((r, d), generator=g, device=dev)
-    mask = (torch.rand((d,), generator=g, device=dev) < 0.3).float()
+    mask = (torch.rand((d,), generator=g, device=dev) < density).float()
     z = torch.randn((d,), generator=g, device=dev) * mask
     gains = 1e-3 + 0.1 * torch.rand((r, m_ant), generator=g, device=dev)
     tx = 1.0 + 100.0 * torch.rand((r,), generator=g, device=dev)
@@ -153,12 +202,14 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def check_kernels_at(r, d, m_ant, seed, txm_zero, timed):
+def check_kernels_at(r, d, m_ant, seed, txm_zero, timed, density=0.3):
     """One shape: both kernels against their plain versions, twice for
-    bit-identity, and (if ``timed``) their times."""
+    bit-identity, and (if ``timed``) their times. ``density`` is the
+    support's share of d: 0.3 for PFELS, 1 for WFL-P and WFL-PDP."""
     import torch
     from repro_torch.kernels.pfels_transmit import kernel, ref
-    u, mask, z, gains, tx, txm = _kernel_inputs(r, d, m_ant, seed, txm_zero)
+    u, mask, z, gains, tx, txm = _kernel_inputs(r, d, m_ant, seed, txm_zero,
+                                                density)
 
     s_k = kernel.client_sumsq(u)
     s_k2 = kernel.client_sumsq(u)
@@ -175,7 +226,7 @@ def check_kernels_at(r, d, m_ant, seed, txm_zero, timed):
     y_ok = bool(torch.allclose(y_k, y_p, rtol=1e-5, atol=y_atol))
     e_rel = abs(float(e_k) - float(e_p)) / max(abs(float(e_p)), 1e-30)
     line = {"phase": "kernels", "r": r, "d": d, "M": m_ant,
-            "txm_zero": txm_zero,
+            "txm_zero": txm_zero, "support_share": density,
             "client_sumsq": {"max_rel_err": sum_rel,
                              "max_abs_err": float((s_k - s_p).abs().max()),
                              "bit_identical": bool(torch.equal(s_k, s_k2))},
@@ -434,12 +485,246 @@ def check_flash_at(shape, dtype_name, seed, timed):
     return summary
 
 
+# clip_norm, randk_gather, aircomp_combine: the paper's VGG-11 update
+# padded to whole 128-lane rows (9,222,912 = 72,054 rows), and the rows of
+# rand-k at p = 0.3 (k = 2,766,857 coordinates, 21,616 rows); ragged small
+# shapes (rows, k_rows), k_rows = 1 among them
+VGG_ROWS = -(-MAIN_D // 128)
+MAIN_K = round(0.3 * MAIN_D)
+ROW_SMALL = ((37, 1), (300, 77), (513, 513))
+# tolerances against the plain versions: the clip's norm sums squares in
+# another order (1e-6 relative), and its output is x times a scale one f32
+# ulp apart at most, rounded to x's dtype (f32 1e-6, bf16 one ulp 2^-8);
+# the gather and the unique-row combine round each element once, as the
+# plain versions do (bit-identical); duplicate rows make the combine's
+# atomics add in a varying order (one rounding per extra add)
+ROW_ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
+CLIP_OUT_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+
+
+def _randn(shape, seed, dtype_name="float32", scale=1.0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g, device="cuda")).to(
+        getattr(torch, dtype_name))
+
+
+def _row_indices(rows, k_rows, seed):
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.randk_gather.ops import row_indices_from_coords
+    if (rows, k_rows) == (VGG_ROWS, MAIN_K // 128):
+        return row_indices_from_coords(prng.PRNGKey(seed), rows * 128,
+                                       MAIN_K)
+    return prng.permutation(prng.PRNGKey(seed), rows)[:k_rows].to(
+        torch.int32)
+
+
+def _max_rel(a, b):
+    """max |a - b| / |b| over the elements, 0/0 counted as 0."""
+    import torch
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    return float(torch.where(diff == 0, torch.zeros_like(diff),
+                             diff / b.abs()).max())
+
+
+def check_clip_at(rows, dtype_name, seed, timed):
+    import torch
+    from repro_torch.kernels.clip_norm import kernel, ref
+    x = _randn((rows, 128), seed, dtype_name, scale=0.01)
+    clip = 0.25
+    o1, n1 = kernel.clip_norm(x, clip)
+    o2, n2 = kernel.clip_norm(x, clip)
+    o_p, n_p = ref.clip_norm_ref(x, clip)
+    torch.cuda.synchronize()
+    norm_rel = abs(float(n1) - float(n_p)) / float(n_p)
+    out_rel = _max_rel(o1, o_p)
+    bit = bool(torch.equal(o1, o2) and torch.equal(n1, n2))
+    line = {"phase": "kernels", "kernel": "clip_norm",
+            "shape": {"R": rows, "lanes": 128}, "dtype": dtype_name,
+            "clip": clip, "norm": float(n1), "norm_rel_gap": norm_rel,
+            "out_max_rel_gap": out_rel,
+            "out_max_abs_err": float((o1.float() - o_p.float()).abs().max()),
+            "bit_identical": bit,
+            "tolerance": f"norm 1e-6 relative; output "
+                         f"{CLIP_OUT_TOL[dtype_name]} relative"}
+    summary = None
+    if timed:
+        n, elem = x.numel(), x.element_size()
+        bound, by = bound_ms(2 * n * elem + 4, 3.0 * n)
+        fns = {"kernel": lambda: kernel.clip_norm(x, clip),
+               "plain": lambda: ref.clip_norm_ref(x, clip),
+               "library_first_pass": lambda: torch.linalg.vector_norm(x)}
+        times = {k: time_ms(f) for k, f in fns.items()}
+        line.update({"times_ms": times,
+                     "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
+                     "bytes": 2 * n * elem + 4,
+                     "library": "torch.linalg.vector_norm: the first pass "
+                                "(the norm) only"})
+        summary = {"max_abs_err": line["out_max_abs_err"],
+                   "ms": times["kernel"], "plain_ms": times["plain"],
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": times["library_first_pass"],
+                   "cold_ms": line["cold_ms"]}
+    emit(line)
+    failures = []
+    if not (norm_rel <= 1e-6 and out_rel <= CLIP_OUT_TOL[dtype_name]):
+        failures.append(f"clip_norm R={rows} {dtype_name} disagrees with "
+                        f"its plain version")
+    if not bit:
+        failures.append(f"clip_norm R={rows} is not bit-identical run to run")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
+def check_gather_at(rows, k_rows, dtype_name, seed, timed):
+    import torch
+    from repro_torch.kernels.randk_gather import kernel, ref
+    delta = _randn((rows, 128), seed, dtype_name, scale=0.01)
+    idx = _row_indices(rows, k_rows, seed)
+    scale = torch.tensor(37.5, device="cuda")     # beta / |h_i|
+    o1 = kernel.randk_gather(delta, idx, scale)
+    o2 = kernel.randk_gather(delta, idx, scale)
+    o_p = ref.randk_gather_ref(delta, idx, scale)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(o1, o_p))
+    bit = bool(torch.equal(o1, o2))
+    line = {"phase": "kernels", "kernel": "randk_gather",
+            "shape": {"R": rows, "k_rows": k_rows, "lanes": 128},
+            "dtype": dtype_name, "bit_identical_to_plain": same,
+            "max_abs_err": float((o1.float() - o_p.float()).abs().max()),
+            "bit_identical": bit, "tolerance": "bit-identical"}
+    summary = None
+    if timed:
+        elem = delta.element_size()
+        n_bytes = 2 * k_rows * 128 * elem + 4 * k_rows + elem
+        bound, by = bound_ms(n_bytes, 1.0 * k_rows * 128)
+        fns = {"kernel": lambda: kernel.randk_gather(delta, idx, scale),
+               "plain": lambda: ref.randk_gather_ref(delta, idx, scale)}
+        times = {k: time_ms(f) for k, f in fns.items()}
+        line.update({"times_ms": times,
+                     "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
+                     "bytes": n_bytes,
+                     "library": "none: no one PyTorch call gathers and "
+                                "scales"})
+        summary = {"max_abs_err": line["max_abs_err"], "ms": times["kernel"],
+                   "plain_ms": times["plain"], "bound_ms": bound,
+                   "bound_by": by, "library_ms": None,
+                   "cold_ms": line["cold_ms"]}
+    emit(line)
+    failures = []
+    if not same:
+        failures.append(f"randk_gather {rows}x{k_rows} {dtype_name} "
+                        f"disagrees with its plain version")
+    if not bit:
+        failures.append(f"randk_gather {rows}x{k_rows} is not bit-identical "
+                        f"run to run")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
+def check_combine_at(rows, k_rows, dtype_name, seed, timed,
+                     duplicates=False):
+    import torch
+    from repro_torch.kernels.aircomp_combine import kernel, ref
+    theta = _randn((rows, 128), seed, dtype_name)
+    y = _randn((k_rows, 128), seed + 1, dtype_name, scale=0.01)
+    if duplicates:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        idx = torch.randint(0, rows, (k_rows,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    else:
+        idx = _row_indices(rows, k_rows, seed)
+    inv = 1.0 / (MAIN_R * 0.05)
+    o1 = kernel.aircomp_combine(theta.clone(), y, idx, inv)
+    o2 = kernel.aircomp_combine(theta.clone(), y, idx, inv)
+    o_p = ref.aircomp_combine_ref(theta, y, idx, inv)
+    torch.cuda.synchronize()
+    err = float((o1.float() - o_p.float()).abs().max())
+    mult = int(torch.bincount(idx.long(), minlength=rows).max())
+    if duplicates:
+        tol = mult * ROW_ULP[dtype_name] * float(o_p.float().abs().max())
+        ok, bit = err <= tol, None
+        tolerance = (f"{mult} (the largest multiplicity) x "
+                     f"{ROW_ULP[dtype_name]} x max|theta|")
+    else:
+        ok = bool(torch.equal(o1, o_p))
+        bit = bool(torch.equal(o1, o2))
+        tolerance = "bit-identical"
+    line = {"phase": "kernels", "kernel": "aircomp_combine",
+            "shape": {"R": rows, "k_rows": k_rows, "lanes": 128},
+            "dtype": dtype_name, "duplicates": duplicates,
+            "max_multiplicity": mult, "max_abs_err": err,
+            "within_tolerance": ok, "bit_identical": bit,
+            "tolerance": tolerance}
+    summary = None
+    if timed:
+        elem = theta.element_size()
+        n_bytes = 3 * k_rows * 128 * elem + 4 * k_rows + elem
+        bound, by = bound_ms(n_bytes, 2.0 * k_rows * 128)
+        work = theta.clone()
+        idx_long = idx.long()
+        fns = {"kernel": lambda: kernel.aircomp_combine(work, y, idx, inv),
+               "plain": lambda: ref.aircomp_combine_ref(theta, y, idx, inv),
+               "library": lambda: work.index_add_(0, idx_long, y,
+                                                  alpha=inv)}
+        times = {k: time_ms(f) for k, f in fns.items()}
+        line.update({"times_ms": times,
+                     "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
+                     "bytes": n_bytes,
+                     "plain_note": "index_add_ on a clone of theta",
+                     "library": "torch.Tensor.index_add_(0, idx, y, "
+                                "alpha=inv), in place"})
+        summary = {"max_abs_err": err, "ms": times["kernel"],
+                   "plain_ms": times["plain"], "bound_ms": bound,
+                   "bound_by": by, "library_ms": times["library"],
+                   "cold_ms": line["cold_ms"]}
+    emit(line)
+    failures = []
+    if not ok:
+        failures.append(f"aircomp_combine {rows}x{k_rows} {dtype_name} "
+                        f"(duplicates {duplicates}) disagrees with its plain "
+                        f"version")
+    if bit is False:
+        failures.append(f"aircomp_combine {rows}x{k_rows} is not "
+                        f"bit-identical run to run")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
+def check_row_kernels():
+    """The three row kernels at ragged small shapes in f32 and bf16
+    (the combine with duplicate rows too), then timed at the VGG-11
+    shapes in f32."""
+    for i, (rows, k_rows) in enumerate(ROW_SMALL):
+        for dtype in ("float32", "bfloat16"):
+            check_clip_at(rows, dtype, seed=i, timed=False)
+            check_gather_at(rows, k_rows, dtype, seed=i, timed=False)
+            check_combine_at(rows, k_rows, dtype, seed=i, timed=False)
+            check_combine_at(rows, 4 * k_rows, dtype, seed=i, timed=False,
+                             duplicates=True)
+    k_rows = MAIN_K // 128
+    return {"clip_norm": check_clip_at(VGG_ROWS, "float32", seed=21,
+                                       timed=True),
+            "randk_gather": check_gather_at(VGG_ROWS, k_rows, "float32",
+                                            seed=22, timed=True),
+            "aircomp_combine": check_combine_at(VGG_ROWS, k_rows, "float32",
+                                                seed=23, timed=True)}
+
+
 def phase_kernels():
     for r, d, m_ant, txm_zero in ((1, 4100, 4, False), (3, 4100, 4, True),
                                   (4, 26_122, 1, False)):
         check_kernels_at(r, d, m_ant, seed=r, txm_zero=txm_zero, timed=False)
     summary = check_kernels_at(MAIN_R, MAIN_D, 1, seed=7, txm_zero=False,
                                timed=True)
+    # the full support of WFL-P and WFL-PDP (k = d): the same bytes
+    check_kernels_at(MAIN_R, MAIN_D, 1, seed=8, txm_zero=False, timed=True,
+                     density=1.0)
     for i, shape in enumerate(SSD_SMALL):
         for dtype in ("float32", "bfloat16"):
             check_ssd_at(shape, dtype, seed=i, timed=False)
@@ -451,6 +736,7 @@ def phase_kernels():
             check_flash_at(shape, dtype, seed=i, timed=False)
     summary["flash_attention_fwd"] = check_flash_at(
         FLASH_ZAMBA2, "bfloat16", seed=13, timed=True)
+    summary.update(check_row_kernels())
     return summary
 
 
@@ -598,7 +884,185 @@ def phase_main_path(profile: bool):
     return launches
 
 
-def _golden_digests(use_fused_kernel: bool):
+def phase_kernel_api():
+    """The reference's public kernel API, the path that reaches the three
+    row kernels (no round of either package calls them), driven once at
+    the paper's VGG-11 width as one transmit and combine: ``clip_flat`` of
+    a client update, ``row_indices_from_coords`` of its rand-k rows,
+    ``gather_rows`` of the clipped update at beta/|h|, ``combine`` of the
+    payload into the model. The launch counters are zeroed just before
+    and read just after; the same chain through the plain versions is the
+    check."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10
+    from repro_torch.kernels.aircomp_combine import kernel as comb_kernel
+    from repro_torch.kernels.aircomp_combine.ops import combine
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.kernels.clip_norm.ops import clip_flat
+    from repro_torch.kernels.randk_gather import kernel as gather_kernel
+    from repro_torch.kernels.randk_gather.ops import (gather_rows,
+                                                      row_indices_from_coords)
+    from repro_torch.models import cnn
+    from repro_torch.tree import ravel
+
+    d_pad = VGG_ROWS * 128
+    theta = torch.nn.functional.pad(
+        ravel(cnn.init_cnn(prng.PRNGKey(0), PAPER_VGG11_CIFAR10)),
+        (0, d_pad - MAIN_D))
+    delta = _randn((MAIN_D,), 31, scale=0.01)
+    key, r, beta, gain = prng.PRNGKey(3), MAIN_R, 0.05, 0.02
+    mods = (clip_kernel, gather_kernel, comb_kernel)
+
+    def chain(use_kernel):
+        clipped, nrm = clip_flat(delta, 0.25, use_kernel=use_kernel)
+        idx = row_indices_from_coords(key, d_pad, MAIN_K)
+        payload = gather_rows(
+            torch.nn.functional.pad(clipped, (0, d_pad - MAIN_D)), idx,
+            beta / gain, use_kernel=use_kernel)
+        return clipped, nrm, idx, payload, combine(
+            theta, payload, idx, r, beta, use_kernel=use_kernel)
+
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    clipped, nrm, idx, payload, new_theta = chain(True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    p_clipped, p_nrm, _, p_payload, p_theta = chain(False)
+    torch.cuda.synchronize()
+    touched = torch.zeros((VGG_ROWS,), dtype=torch.bool, device="cuda")
+    touched[idx.long()] = True
+    rows_moved = (new_theta.reshape(VGG_ROWS, 128)
+                  != theta.reshape(VGG_ROWS, 128)).any(dim=1)
+    line = {"phase": "kernel_api", "d": MAIN_D, "d_padded": d_pad,
+            "k": MAIN_K, "k_rows": int(idx.numel()), "r": r, "beta": beta,
+            "gain": gain, "wall_s": wall, "launches": launches,
+            "norm": float(nrm), "norm_rel_gap": abs(float(nrm) - float(p_nrm))
+            / float(p_nrm),
+            "clipped_max_rel_gap": _max_rel(clipped, p_clipped),
+            "payload_max_rel_gap": _max_rel(payload, p_payload),
+            "theta_max_abs_err": float((new_theta - p_theta).abs().max()),
+            "finite": bool(torch.isfinite(new_theta).all()),
+            "only_support_rows_moved": bool(not (rows_moved
+                                                 & ~touched).any()),
+            "tolerance": "norm, clipped and payload 1e-6 relative; theta "
+                         "1e-6 of max|theta|"}
+    emit(line)
+    failures = []
+    if launches != {"clip_norm": 1, "randk_gather": 1, "aircomp_combine": 1}:
+        failures.append(f"the kernel API launched {launches}")
+    if idx.numel() != MAIN_K // 128 or new_theta.shape != (d_pad,):
+        failures.append("unexpected shapes")
+    if not (line["finite"] and line["only_support_rows_moved"]):
+        failures.append("bad output of combine")
+    if not (line["norm_rel_gap"] <= 1e-6
+            and line["clipped_max_rel_gap"] <= 1e-6
+            and line["payload_max_rel_gap"] <= 1e-6
+            and line["theta_max_abs_err"]
+            <= 1e-6 * float(p_theta.abs().max())):
+        failures.append("the kernel chain disagrees with the plain chain")
+    del theta, delta, clipped, payload, new_theta, p_clipped, p_payload
+    del p_theta
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+# the paper's comparators at the main path's config, 2 rounds each; the
+# launches each should make: the fused AirComp round launches
+# fused_combine once, and client_sumsq once unless error feedback applies
+# the transmit clip itself (in plain torch); the digital schemes neither
+BASELINE_RUNS = (
+    ("wfl_p", {}, {"client_sumsq": 1, "fused_combine": 1}),
+    ("wfl_pdp", {}, {"client_sumsq": 1, "fused_combine": 1}),
+    ("dp_fedavg", {}, {"client_sumsq": 0, "fused_combine": 0}),
+    ("fedavg", {}, {"client_sumsq": 0, "fused_combine": 0}),
+    ("pfels", {"error_feedback": True},
+     {"client_sumsq": 0, "fused_combine": 1}),
+)
+
+
+def phase_baselines(profile: bool):
+    """``Trainer.run`` of each of the paper's comparators (and PFELS with
+    error feedback) at the main path's config on VGG-11, 2 rounds each:
+    s/round, peak memory, the metrics and the launches of every kernel;
+    with ``profile``, one more round of each under the profiler."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10, PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import Trainer
+    from repro_torch.models import cnn
+
+    cfg_m = PAPER_VGG11_CIFAR10
+    rounds = 2
+    params = cnn.init_cnn(prng.PRNGKey(0), cfg_m)
+    d = sum(p.numel() for p in params.values())
+    x, y, _, _ = make_federated_classification(
+        prng.PRNGKey(0), n_clients=1000, per_client=50, num_classes=10,
+        image_shape=(3, 32, 32))
+    loss_fn = lambda p, b: cnn.cnn_loss(p, cfg_m, b)
+    mods = _kernel_modules()
+    failures = []
+    for alg, extra, per_round in BASELINE_RUNS:
+        cfg = PFELSConfig(algorithm=alg, transmit_clip=0.25,
+                          use_fused_kernel=True, channel=scaled_channel(d),
+                          **extra)
+        trainer = Trainer(cfg, loss_fn, params)
+        state = trainer.init(prng.PRNGKey(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+
+        def on_round(t, metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        for mod in mods:
+            mod.reset_launch_counts()
+        end, metrics = trainer.run(state, x, y, rounds=rounds,
+                                   on_round=on_round)
+        torch.cuda.synchronize()
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated()
+        m = {k: [float(v) for v in metrics[k]] for k in metrics}
+        finite = all(math.isfinite(v) for vs in m.values() for v in vs)
+        want = {k: 0 for k in launches}
+        want.update({k: n * rounds for k, n in per_round.items()})
+        emit({"phase": "baselines", "algorithm": alg, **extra, "d": d,
+              "r": cfg.clients_per_round, "tau": cfg.local_steps,
+              "transmit_clip": cfg.transmit_clip, "rounds": rounds,
+              "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+              "peak_memory_bytes": peak, "launches": launches,
+              "subcarriers": m["subcarriers"], "train_loss": m["train_loss"],
+              "beta": m["beta"], "energy": m["energy"],
+              "eps_round": m["eps_round"], "update_norm": m["update_norm"],
+              "ledger_totals": trainer.ledger_totals(end),
+              "residuals_bytes": (0 if end.residuals is None else
+                                  end.residuals.numel() * 4),
+              "finite": finite})
+        if launches != want:
+            failures.append(f"{alg} {extra}: launched {launches}, "
+                            f"expected {want}")
+        if not finite:
+            failures.append(f"{alg} {extra}: non-finite metric")
+        if profile:
+            profile_call(f"one more {alg} {extra} round",
+                         lambda: trainer.step(end, x, y))
+        del trainer, state, end, metrics
+        torch.cuda.empty_cache()
+    del x, y, params
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _golden_digests(**overrides):
     import numpy as np
     import torch
     from repro_torch import prng
@@ -619,7 +1083,7 @@ def _golden_digests(use_fused_kernel: bool):
         image_shape=(1, 8, 8))
     cfg = PFELSConfig(num_clients=20, clients_per_round=4, local_steps=2,
                       local_lr=0.05, compression_ratio=0.3, epsilon=2.0,
-                      rounds=2, use_fused_kernel=use_fused_kernel)
+                      rounds=2, **overrides)
     trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, BENCH_MLP, b),
                       params)
     state = replace(trainer.init(prng.PRNGKey(1)), key=prng.PRNGKey(2))
@@ -640,17 +1104,33 @@ def _max_rel_gap(a, b):
     return max(gaps)
 
 
+# the committed golden rows of the baselines and error feedback, with
+# their configs (tools/update_goldens.py)
+GOLDEN_ROWS = {
+    "wfl_p-unfused": dict(algorithm="wfl_p", use_fused_kernel=False),
+    "wfl_p-fused": dict(algorithm="wfl_p", use_fused_kernel=True),
+    "wfl_pdp-unfused": dict(algorithm="wfl_pdp", use_fused_kernel=False),
+    "wfl_pdp-fused": dict(algorithm="wfl_pdp", use_fused_kernel=True),
+    "dp_fedavg-unfused": dict(algorithm="dp_fedavg", use_fused_kernel=False),
+    "fedavg-unfused": dict(algorithm="fedavg", use_fused_kernel=False),
+    "pfels-error_feedback": dict(error_feedback=True, transmit_clip=0.5,
+                                 use_fused_kernel=False),
+}
+
+
 def phase_parity():
     from repro_torch.kernels.pfels_transmit import kernel
     kernel.reset_launch_counts()
-    fused = _golden_digests(True)
+    fused = _golden_digests(use_fused_kernel=True)
     fused_launches = dict(kernel.LAUNCHES)
-    unfused = _golden_digests(False)
+    unfused = _golden_digests(use_fused_kernel=False)
     with open(os.path.join(ROOT, "tests", "goldens",
                            "golden_digests.json")) as f:
         golden = json.load(f)["cases"]
     gaps = {"fused_vs_unfused": _max_rel_gap(fused, unfused)}
-    for name, got in (("pfels-fused", fused), ("pfels-unfused", unfused)):
+    runs = [("pfels-fused", fused), ("pfels-unfused", unfused)]
+    runs += [(name, _golden_digests(**kw)) for name, kw in GOLDEN_ROWS.items()]
+    for name, got in runs:
         g = golden[name]
         want = {"params": g["params"], "prev_delta": g["prev_delta"],
                 **{k: g["metrics"][k] for k in ("train_loss", "update_norm",
@@ -665,7 +1145,7 @@ def phase_parity():
         failures.append("the fused run did not go through fused_combine")
     if not gaps["fused_vs_unfused"] <= 1e-5:
         failures.append("fused and unfused runs disagree")
-    for name in ("pfels-fused", "pfels-unfused"):
+    for name, _ in runs:
         if not gaps[f"{name}_vs_reference"] <= 1e-4:
             failures.append(f"{name} digests disagree with the reference")
     if failures:
@@ -799,10 +1279,11 @@ def phase_serve():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more main-path round after the "
-                         "checked ones, and one more zamba2-2.7b prefill "
-                         "and 8 decode steps after the serve phase "
-                         "(device busy time, time by kernel)")
+                    help="profile one more main-path round and one more "
+                         "round of each baseline after the checked ones, "
+                         "and one more zamba2-2.7b prefill and 8 decode "
+                         "steps after the serve phase (device busy time, "
+                         "time by kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -816,6 +1297,8 @@ def main(argv=None) -> int:
     phase_build()
     summary = phase_kernels()
     launches = phase_main_path(args.profile)
+    launches.update(phase_kernel_api())
+    phase_baselines(args.profile)
     phase_parity()
     phase_serve_parity()
     launches.update(phase_serve())
@@ -831,7 +1314,15 @@ def main(argv=None) -> int:
              "src/repro/kernels/ssd_scan/kernel.py:71"),
             ("flash_attn.flash_attention_fwd", "flash_attention_fwd",
              "src/repro_torch/csrc/flash_attn.cu",
-             "src/repro/kernels/flash_attn/kernel.py:75")]
+             "src/repro/kernels/flash_attn/kernel.py:75"),
+            ("randk_gather", "randk_gather",
+             "src/repro_torch/csrc/randk_gather.cu",
+             "src/repro/kernels/randk_gather/kernel.py:43"),
+            ("aircomp_combine", "aircomp_combine",
+             "src/repro_torch/csrc/aircomp_combine.cu",
+             "src/repro/kernels/aircomp_combine/kernel.py:37"),
+            ("clip_norm", "clip_norm", "src/repro_torch/csrc/clip_norm.cu",
+             "src/repro/kernels/clip_norm/kernel.py:36")]
     assert [r[1] for r in rows[:2]] == list(kernel.LAUNCHES)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -118,11 +118,8 @@ def params_to_jax(params: Params) -> Any:
 def train_state_from_jax(state: Any, device: Device = "cuda") -> TrainState:
     """A ``repro.fl.api.TrainState`` (its leaves as numpy, e.g. through
     ``jax.device_get``) -> the port's ``TrainState``: params, power
-    limits, bank lanes and counts, prev_delta, key, round and ledger.
-    Error-feedback residuals and channel carries are not ported yet."""
-    if getattr(state.bank, "residuals", None) is not None:
-        raise NotImplementedError("error-feedback residuals are not "
-                                  "ported yet: ROADMAP Queue 1, item 7")
+    limits, bank (error-feedback residuals, lanes and counts), prev_delta,
+    key, round and ledger. Channel carries are not ported yet."""
     if getattr(state, "chan", None) is not None:
         raise NotImplementedError("stateful channel carries are not "
                                   "ported yet: ROADMAP Queue 1, item 9")
@@ -130,7 +127,9 @@ def train_state_from_jax(state: Any, device: Device = "cuda") -> TrainState:
     return TrainState(
         params=params_from_jax(state.params, device),
         power_limits=t(state.power_limits, torch.float32),
-        bank=BankState(residuals=None,
+        bank=BankState(residuals=(None if state.bank.residuals is None
+                                  else t(state.bank.residuals,
+                                         torch.float32)),
                        lanes=prng.key_from_words(state.bank.lanes, device),
                        counts=t(state.bank.counts, torch.int32)),
         prev_delta=t(state.prev_delta, torch.float32),

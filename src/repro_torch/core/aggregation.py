@@ -1,6 +1,7 @@
-"""AirComp aggregation, simulation mode (port of
-``repro/core/aggregation.py:19-120``): the unfused plain-torch path and
-the fused path through the ``pfels_transmit`` kernels."""
+"""Aggregation, simulation mode (port of the single-device part of
+``repro/core/aggregation.py``): AirComp through the unfused plain-torch
+path or the fused path through the ``pfels_transmit`` kernels, and the
+digital baselines' server-side aggregates (DP-FedAvg, FedAvg)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -75,3 +76,23 @@ def aircomp_aggregate_fused(updates_flat, idx, gains, beta, noise_key, *,
         gains_est=gains_est, tx_mask=tx_mask,
         unbiased_rescale=unbiased_rescale, use_kernel=use_kernel,
         active=active)
+
+
+def dp_fedavg_aggregate(updates_flat, clip: float, sigma: float, noise_key,
+                        *, r: int):
+    """DP-FedAvg baseline (Alg. 1 lines 11/13): per-client l2 clip to C,
+    the mean, and Gaussian noise N(0, (C sigma)^2 / r) per coordinate from
+    one ``normal`` of size d. The noise std is f32(C sigma) / sqrt(f32 r),
+    the order and types the reference's weak-typed scalars give."""
+    dev = updates_flat.device
+    norms = torch.linalg.vector_norm(updates_flat, dim=1, keepdim=True)
+    clipped = updates_flat / torch.clamp_min(norms / clip, 1.0)
+    std = (torch.tensor(clip * sigma, dtype=torch.float32, device=dev)
+           / torch.sqrt(torch.tensor(float(r), dtype=torch.float32,
+                                     device=dev)))
+    noise = std * prng.normal(noise_key, tuple(updates_flat.shape[1:]))
+    return torch.mean(clipped, dim=0) + noise
+
+
+def fedavg_aggregate(updates_flat):
+    return torch.mean(updates_flat, dim=0)

@@ -5,8 +5,9 @@ from repro_torch.core.compressors.base import (Compressor, Support,
                                                get_compressor, project,
                                                register_compressor,
                                                sensitivity_factor,
-                                               support_size)
+                                               sparsify, support_size)
 
 __all__ = ["Compressor", "Support", "as_support",
            "decode_support", "get_compressor", "project",
-           "register_compressor", "sensitivity_factor", "support_size"]
+           "register_compressor", "sensitivity_factor", "sparsify",
+           "support_size"]

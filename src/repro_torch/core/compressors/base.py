@@ -40,9 +40,15 @@ def project(u: torch.Tensor, sup: Support) -> torch.Tensor:
 
 
 def decode_support(y: torch.Tensor, sup: Support, d: int) -> torch.Tensor:
-    """(k,) -> (d,) server-side unprojection A^T y."""
+    """(..., k) -> (..., d) server-side unprojection A^T y."""
     vals = y if sup.active is None else y * sup.active
     return randk.unproject(vals, sup.idx, d)
+
+
+def sparsify(u: torch.Tensor, sup: Support, d: int) -> torch.Tensor:
+    """A^T A u, (..., d) -> (..., d): what a client actually put on the
+    air, dense; the error-feedback residual subtracts it."""
+    return decode_support(project(u, sup), sup, d)
 
 
 @dataclass(frozen=True)

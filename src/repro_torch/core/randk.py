@@ -19,7 +19,9 @@ def project(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def unproject(y: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
-    """(A^t)^T y: scatter k values back into d dims (zeros elsewhere)."""
-    out = torch.zeros((d,), dtype=y.dtype, device=y.device)
-    out[idx] = y
+    """(A^t)^T y: scatter k values back into d dims (zeros elsewhere).
+    y: (..., k) -> (..., d)."""
+    out = torch.zeros(tuple(y.shape[:-1]) + (d,), dtype=y.dtype,
+                      device=y.device)
+    out[..., idx] = y
     return out

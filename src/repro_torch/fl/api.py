@@ -2,10 +2,11 @@
 ``repro/fl/api.py``).
 
 ``TrainState`` holds all loop state: params (a dict in pytree order), the
-per-device power limits, the client bank (lanes and participation
-counts), the previous round's reconstructed update ``prev_delta``, the
-PRNG key the next call consumes, the round counter, the privacy ledger
-and the channel-model carry.
+per-device power limits, the client bank (error-feedback residuals,
+lanes and participation counts), the previous round's reconstructed
+update ``prev_delta`` (which ``randk_mode="server_topk"`` selects from),
+the PRNG key the next call consumes, the round counter, the privacy
+ledger and the channel-model carry.
 
 PRNG contract (the reference's): ``init(key)`` draws the power limits from
 ``key`` and forks the run stream ``fold_in(key, 0x5047)`` and the channel
@@ -37,12 +38,18 @@ class TrainState:
     """All state of the Alg. 2 server loop."""
     params: Params                    # name -> tensor, pytree order
     power_limits: torch.Tensor        # (N,) P_i, fixed per device
-    bank: bank_lib.BankState          # per-client lanes and counts
+    bank: bank_lib.BankState          # residuals, lanes and counts
     prev_delta: torch.Tensor          # (d,) last reconstructed Delta_hat
     key: torch.Tensor                 # PRNG key the NEXT step/run consumes
     round: torch.Tensor               # int32 scalar, rounds completed
     ledger: privacy.LedgerState       # (eps, delta) accumulators
     chan: Any = None                  # channel-model carry (None here)
+
+    @property
+    def residuals(self) -> Optional[torch.Tensor]:
+        """The (N, d) error-feedback memory (None without
+        ``cfg.error_feedback``); it lives in the bank."""
+        return self.bank.residuals
 
 
 class Trainer:
@@ -51,8 +58,11 @@ class Trainer:
     ``Trainer(cfg, loss_fn, params_template, device="cuda")``: ``loss_fn
     (params, {"x", "y"}) -> (loss, aux)``; ``params_template`` defines d
     and the flat layout and is the default initial params. Every tensor
-    of the state lives on ``device``. Options this slice does not port
-    raise ``NotImplementedError`` here.
+    of the state lives on ``device``. Options the port does not run yet
+    raise ``NotImplementedError`` here. With ``cfg.error_feedback`` the
+    bank's (N, d) residual memory is updated in place
+    (``bank.ResidentBank``), so a state cannot be rerun once a later
+    state was made from it.
     """
 
     def __init__(self, cfg: PFELSConfig, loss_fn: Callable,
@@ -68,7 +78,8 @@ class Trainer:
                                  for n, t in params_template.items()}
         self.unravel = Unravel(self._params_template)
         self.d = self.unravel.d
-        self.bank = bank_lib.ResidentBank(cfg.num_clients, self.device)
+        self.bank = bank_lib.ResidentBank(cfg.num_clients, self.d,
+                                          cfg.error_feedback, self.device)
         self._cohort_core = rounds.build_cohort_core(
             cfg, loss_fn, self.d, self.unravel)
 
@@ -109,18 +120,20 @@ class Trainer:
     def _bank_round(self, params, power_limits, bank, prev_delta, chan, ledger,
                data_x, data_y, round_key):
         """One round against the resident bank: sample the cohort, gather
-        its slices, run the cohort core, write this round's bank lanes
-        and counts back, charge the ledger."""
+        its slices, run the cohort core, write its residual slice, this
+        round's bank lanes and counts back, charge the ledger."""
         ks = rounds.split_round_key(round_key)
         sel = rounds.sample_cohort(ks[rounds.ROUND_KEY_LANES["selection"]],
                                    self.cfg.num_clients,
                                    self.cfg.clients_per_round)
-        new_params, metrics, delta_hat, new_chan = self._cohort_core(
-            params, power_limits[sel], data_x[sel], data_y[sel], ks,
-            prev_delta, chan, sel)
+        res_sel = self.bank.gather(bank, sel)
+        new_params, metrics, new_res_sel, delta_hat, new_chan = \
+            self._cohort_core(params, power_limits[sel], data_x[sel],
+                              data_y[sel], ks, res_sel, prev_delta, chan,
+                              sel)
         lanes = bank_lib.cohort_lane_keys(
             ks[rounds.ROUND_KEY_LANES["bank"]], sel)
-        new_bank = self.bank.scatter(bank, sel, lanes)
+        new_bank = self.bank.scatter(bank, sel, new_res_sel, lanes)
         ledger, metrics = self._spend(ledger, metrics)
         return new_params, metrics, new_bank, delta_hat, new_chan, ledger
 

@@ -1,10 +1,12 @@
-"""The PFELS round (Alg. 2), single device (port of the single-device
-body of ``repro/fl/rounds.py``).
+"""The PFELS round (Alg. 2) and the paper's baselines, single device
+(port of the single-device body of ``repro/fl/rounds.py``).
 
 One round: split the round key into 7 lanes, sample r of n clients, run
-tau steps of local training per client, draw the block-fading gains, the
-rand-k support and the Theorem-5 beta, aggregate over the simulated MAC
-(fused kernels or the unfused plain path), and update the server model.
+tau steps of local training per client (plus the error-feedback residual
+if enabled), draw the block-fading gains and, for AirComp schemes, the
+support and beta, aggregate (over the simulated MAC through the fused
+kernels or the unfused plain path, or digitally on the server), update
+the residual memory and the server model.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.configs.base import PFELSConfig
 from repro_torch.core import aggregation, channel, channels, compressors
 from repro_torch.fl import algorithms
 from repro_torch.fl.client import local_train
+from repro_torch.kernels.pfels_transmit import ref as transmit_ref
 from repro_torch.tree import Unravel, ravel
 
 # The fixed 7-lane split of each round key. Which lane feeds which draw
@@ -49,16 +52,10 @@ def init_power_limits(key, cfg: PFELSConfig, d: int) -> torch.Tensor:
 
 
 def check_ported(cfg: PFELSConfig) -> None:
-    """Raise for every option this slice of the port does not run, naming
-    the ROADMAP queue item that will bring it; nothing silently runs
-    something else."""
+    """Raise for every option this port does not run yet, naming the
+    ROADMAP item that will bring it; nothing silently runs something
+    else."""
     todo = []
-    if cfg.algorithm != "pfels":
-        todo.append((f"algorithm={cfg.algorithm!r}", 7))
-    if cfg.error_feedback:
-        todo.append(("error_feedback=True", 7))
-    if cfg.randk_mode != "exact":
-        todo.append((f"randk_mode={cfg.randk_mode!r}", 7))
     if cfg.bank_backend != "resident":
         todo.append((f"bank_backend={cfg.bank_backend!r}", 8))
     if cfg.channel.model != "block_fading":
@@ -77,18 +74,34 @@ def check_ported(cfg: PFELSConfig) -> None:
 def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
                       unravel: Unravel):
     """The round body on cohort slices: ``cohort_core(params, p_sel, cx,
-    cy, ks, prev_delta, chan_carry, sel) -> (new_params, metrics,
-    delta_hat, new_chan_carry)``, where ``p_sel`` (r,), ``cx``/``cy``
-    (r, samples, ...) are the sampled clients' slices and ``ks`` is the
-    ``split_round_key`` output (lanes 1-4 and 6 are consumed here; the
-    selection and bank lanes belong to the caller)."""
+    cy, ks, res_sel, prev_delta, chan_carry, sel) -> (new_params,
+    metrics, new_res_sel, delta_hat, new_chan_carry)``, where ``p_sel``
+    (r,), ``cx``/``cy`` (r, samples, ...) and ``res_sel`` (r, d) or None
+    are the sampled clients' slices and ``ks`` is the ``split_round_key``
+    output (lanes 1-4 and 6 are consumed here; the selection and bank
+    lanes belong to the caller).
+
+    AirComp schemes (pfels, wfl_*) draw a support and a beta and
+    aggregate over the simulated MAC; digital ones (dp_fedavg, fedavg)
+    aggregate on the server from the ``channel_noise`` lane, with beta =
+    energy = 0 and d subcarriers. With error feedback each client's
+    residual is added to its update before the transmit, the transmit
+    clip (if set) is applied here rather than in the aggregator, and the
+    new residual is the update minus what was put on the air."""
     k_coords = max(int(round(cfg.compression_ratio * d)), 1)
     alg = algorithms.get_algorithm(cfg.algorithm)
     chan_model = channels.get_channel_model(cfg.channel.model)
     sigma0 = chan_model.noise_std(cfg.channel)
-    comp = compressors.get_compressor(cfg.compressor)
-    c1_scale = comp.sensitivity(cfg, d)
     r = cfg.clients_per_round
+    aircomp = alg.aircomp
+    # the compressor applies only to sparsifying AirComp schemes (pfels)
+    comp = (compressors.get_compressor(cfg.compressor)
+            if aircomp and alg.sparsifies_transmit else None)
+    c1_scale = comp.sensitivity(cfg, d) if comp is not None else 1.0
+    ef_on = cfg.error_feedback
+    # error feedback needs the clip scales for the residual, so the clip
+    # is applied once here and the aggregator gets clip=None
+    pre_clip = cfg.transmit_clip is not None and ef_on
 
     def client_updates(params, flat_params, cx, cy, ck):
         """Local training (Alg. 2 lines 5-11) of each sampled client ->
@@ -105,8 +118,8 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
             torch.sub(ravel(new_params), flat_params, out=flat[i])
         return flat, losses
 
-    def cohort_core(params, p_sel, cx, cy, ks, prev_delta=None,
-                    chan_carry=None, sel=None):
+    def cohort_core(params, p_sel, cx, cy, ks, res_sel=None,
+                    prev_delta=None, chan_carry=None, sel=None):
         ck = prng.split(ks[ROUND_KEY_LANES["client_train"]], r)
 
         new_chan_carry, cr = chan_model.step(
@@ -114,16 +127,24 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
             ks[ROUND_KEY_LANES["gains"]], ks[ROUND_KEY_LANES["csi"]])
         gains = cr.gains
 
-        # support omega_t and the Theorem-5 beta from the observed gains
-        sup = compressors.as_support(alg.select_support(
-            cfg, d, k_coords, prev_delta, ks[ROUND_KEY_LANES["support"]]))
-        k_used = compressors.support_size(sup)
-        beta = alg.design_beta(cfg, channels.design_gains(cr), p_sel, d,
-                               k_used, c1_scale=c1_scale)
+        # support omega_t and beta from the observed gains
+        sup = beta = None
+        k_used = d
+        if aircomp:
+            sup = compressors.as_support(alg.select_support(
+                cfg, d, k_coords, prev_delta,
+                ks[ROUND_KEY_LANES["support"]]))
+            k_used = compressors.support_size(sup)
+            beta = alg.design_beta(cfg, channels.design_gains(cr), p_sel, d,
+                                   k_used, c1_scale=c1_scale)
 
+        # local training, plus the residual memory under error feedback
+        use_ef = ef_on and res_sel is not None
         flat_params = ravel(params)
         flat_updates, losses = client_updates(params, flat_params, cx, cy,
                                               ck)
+        if use_ef:
+            flat_updates += res_sel
         metrics: Dict[str, torch.Tensor] = {
             "train_loss": torch.mean(losses),
             "update_norm": torch.mean(
@@ -131,25 +152,50 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
             "r_realized": channels.realized_cohort_size(cr, r),
         }
 
-        agg_kw = dict(
-            d=d, sigma0=sigma0, r=r, unbiased_rescale=cfg.unbiased_rescale,
-            gains_est=(cr.gains_obs if cfg.channel.csi_error > 0 else None),
-            clip=cfg.transmit_clip, tx_mask=cr.tx_mask, active=sup.active)
         noise_key = ks[ROUND_KEY_LANES["channel_noise"]]
-        if cfg.use_fused_kernel:
-            delta_hat, energy, _ = aggregation.aircomp_aggregate_fused(
-                flat_updates, sup.idx, gains, beta, noise_key,
-                gains_ant=cr.gains_ant, **agg_kw)
+        tx_full = flat_updates      # the as-transmitted (r, d) batch
+        if aircomp:
+            agg_clip = cfg.transmit_clip
+            if pre_clip:
+                tx_full = flat_updates * transmit_ref.clip_scales(
+                    flat_updates, cfg.transmit_clip)[:, None]
+                agg_clip = None
+            agg_kw = dict(
+                d=d, sigma0=sigma0, r=r,
+                unbiased_rescale=cfg.unbiased_rescale,
+                gains_est=(cr.gains_obs if cfg.channel.csi_error > 0
+                           else None),
+                clip=agg_clip, tx_mask=cr.tx_mask, active=sup.active)
+            if cfg.use_fused_kernel:
+                delta_hat, energy, _ = aggregation.aircomp_aggregate_fused(
+                    tx_full, sup.idx, gains, beta, noise_key,
+                    gains_ant=cr.gains_ant, **agg_kw)
+            else:
+                delta_hat, energy, _ = aggregation.aircomp_aggregate(
+                    tx_full, sup.idx, gains, beta, noise_key, **agg_kw)
         else:
-            delta_hat, energy, _ = aggregation.aircomp_aggregate(
-                flat_updates, sup.idx, gains, beta, noise_key, **agg_kw)
+            # digital server-side aggregation (the channel's transmit mask
+            # and its realized-r rescale come with the dropout channel)
+            delta_hat = alg.server_aggregate(cfg, flat_updates, noise_key,
+                                             d=d, r=r)
+            beta = torch.zeros((), dtype=torch.float32,
+                               device=flat_params.device)
+            energy = torch.zeros_like(beta)
         metrics.update(beta=beta, energy=energy,
                        subcarriers=torch.as_tensor(
-                           k_used, device=beta.device))
+                           k_used, device=flat_params.device))
+
+        # error-feedback memory: e_i <- u_i - A^T A (s_i u_i), the update
+        # minus what was actually sent (clipped, projected on the support)
+        new_res_sel = res_sel
+        if use_ef:
+            transmitted = (compressors.sparsify(tx_full, sup, d)
+                           if alg.sparsifies_transmit else tx_full)
+            new_res_sel = flat_updates - transmitted
 
         # server update (line 16)
-        return (unravel(flat_params + delta_hat), metrics, delta_hat,
-                new_chan_carry)
+        return (unravel(flat_params + delta_hat), metrics, new_res_sel,
+                delta_hat, new_chan_carry)
 
     return cohort_core
 

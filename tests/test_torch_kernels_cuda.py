@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (the PFELS transmit pair, the SSD
-chunk scan and the flash-attention forward): each against its plain torch
-version, bit-identical run to run, counted, and refusing what it does not
-take. Every test needs a CUDA device and skips without one; this file
+chunk scan, the flash-attention forward, the l2-norm clip, the rand-k row
+gather and the AirComp combine): each against its plain torch version,
+bit-identical run to run, counted, and refusing what it does not take. Every test needs a CUDA device and skips without one; this file
 imports neither JAX nor the reference, so it runs on a GPU machine that
 has only the port's dependencies:
 
@@ -16,9 +16,18 @@ import torch
 from repro_torch import prng
 from repro_torch.configs import reduced_config
 from repro_torch.core import aggregation
+from repro_torch.kernels.aircomp_combine import kernel as comb_kernel
+from repro_torch.kernels.aircomp_combine import ops as comb_ops
+from repro_torch.kernels.aircomp_combine import ref as comb_ref
+from repro_torch.kernels.clip_norm import kernel as clip_kernel
+from repro_torch.kernels.clip_norm import ops as clip_ops
+from repro_torch.kernels.clip_norm import ref as clip_ref
 from repro_torch.kernels.flash_attn import kernel as flash_kernel
 from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.pfels_transmit import kernel, ops, ref
+from repro_torch.kernels.randk_gather import kernel as gather_kernel
+from repro_torch.kernels.randk_gather import ops as gather_ops
+from repro_torch.kernels.randk_gather import ref as gather_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import transformer as T
@@ -250,3 +259,164 @@ def _to(tree, device):
     if isinstance(tree, tuple):
         return tuple(_to(v, device) for v in tree)
     return tree.to(device)
+
+
+# ----------------------------- clip_norm, randk_gather, aircomp_combine
+
+ROW_DTYPES = [torch.float32, torch.bfloat16]
+# the row counts: one row, ragged against the 8192-element sum chunk, and
+# more rows than one scale-pass wave
+ROWS = [1, 37, 513, 20_001]
+
+
+def _rows(rows, dtype, device, seed=0, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (scale * torch.randn((rows, 128), generator=g,
+                                device=device)).to(dtype)
+
+
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+@pytest.mark.parametrize("clip", [0.5, 1e6])
+def test_clip_norm_matches_plain_and_is_deterministic(cuda, rows, dtype,
+                                                      clip):
+    x = _rows(rows, dtype, cuda, seed=rows)
+    before = clip_kernel.LAUNCHES["clip_norm"]
+    o1, n1 = clip_kernel.clip_norm(x, clip)
+    o2, n2 = clip_kernel.clip_norm(x, clip)
+    torch.cuda.synchronize()
+    assert clip_kernel.LAUNCHES["clip_norm"] == before + 2
+    assert torch.equal(o1, o2) and torch.equal(n1, n2)
+    o_p, n_p = clip_ref.clip_norm_ref(x, clip)
+    # f32 sums of squares in another order: the norm within 1e-6; the
+    # output is x times a scale one f32 ulp apart at most, rounded to x's
+    # dtype (one bf16 ulp, 2^-8, where it sits on a rounding boundary)
+    torch.testing.assert_close(n1, n_p, rtol=1e-6, atol=0.0)
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(o1.float(), o_p.float(), rtol=rtol, atol=0.0)
+    assert o1.dtype == dtype and n1.dtype == torch.float32
+
+
+def test_clip_flat_on_card_pads_and_cuts(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((4100,), generator=g, device=cuda)
+    out, nrm = clip_ops.clip_flat(x, 0.5)
+    assert out.shape == (4100,)
+    torch.testing.assert_close(float(torch.linalg.vector_norm(out)), 0.5,
+                               rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(nrm, torch.linalg.vector_norm(x), rtol=1e-5,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("rows,k_rows", [(64, 16), (513, 1), (20_001,
+                                                              6_000)])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_matches_plain_and_is_deterministic(cuda, rows, k_rows,
+                                                         dtype):
+    delta = _rows(rows, dtype, cuda, seed=k_rows)
+    idx = prng.permutation(prng.PRNGKey(rows, cuda), rows)[:k_rows]
+    idx = idx.to(torch.int32)
+    scale = torch.tensor(0.37, device=cuda)
+    before = gather_kernel.LAUNCHES["randk_gather"]
+    o1 = gather_kernel.randk_gather(delta, idx, scale)
+    o2 = gather_kernel.randk_gather(delta, idx, scale)
+    torch.cuda.synchronize()
+    assert gather_kernel.LAUNCHES["randk_gather"] == before + 2
+    # one product per element, rounded once on both sides
+    assert torch.equal(o1, gather_ref.randk_gather_ref(delta, idx, scale))
+    assert torch.equal(o1, o2) and o1.dtype == dtype
+
+
+def test_randk_gather_fills_an_index_out_of_range_with_nan(cuda):
+    delta = _rows(8, torch.float32, cuda)
+    idx = torch.tensor([7, 8, -1, 0], dtype=torch.int32, device=cuda)
+    out = gather_kernel.randk_gather(delta, idx, 1.0)
+    assert torch.equal(out[0], delta[7]) and torch.equal(out[3], delta[0])
+    assert torch.isnan(out[1:3]).all()
+
+
+def test_gather_rows_entry_point_on_card(cuda):
+    d, k = 300 * 128, 9_000
+    delta = _rows(300, torch.float32, cuda, seed=4).reshape(-1)
+    idx = gather_ops.row_indices_from_coords(prng.PRNGKey(3, cuda), d, k)
+    assert idx.dtype == torch.int32 and idx.shape == (k // 128,)
+    got = gather_ops.gather_rows(delta, idx, 2.0)
+    want = gather_ops.gather_rows(delta, idx, 2.0, use_kernel=False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,k_rows", [(64, 16), (513, 1), (20_001,
+                                                              6_000)])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_aircomp_combine_unique_rows_match_plain(cuda, rows, k_rows, dtype):
+    theta = _rows(rows, dtype, cuda, seed=rows)
+    y = _rows(k_rows, dtype, cuda, seed=k_rows + 1)
+    idx = prng.permutation(prng.PRNGKey(k_rows, cuda), rows)[:k_rows]
+    idx = idx.to(torch.int32)
+    want = comb_ref.aircomp_combine_ref(theta, y, idx, 1.0 / (32 * 0.7))
+    outs = []
+    before = comb_kernel.LAUNCHES["aircomp_combine"]
+    for _ in range(2):
+        t = theta.clone()
+        assert comb_kernel.aircomp_combine(t, y, idx, 1.0 / (32 * 0.7)) is t
+        outs.append(t)
+    torch.cuda.synchronize()
+    assert comb_kernel.LAUNCHES["aircomp_combine"] == before + 2
+    # unique rows: one atomic add per element, the same rounding as the
+    # plain version's, in any order
+    assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_aircomp_combine_duplicate_rows_accumulate(cuda, dtype):
+    rows, k_rows = 40, 4_000
+    theta = _rows(rows, dtype, cuda, seed=1)
+    y = _rows(k_rows, dtype, cuda, seed=2, scale=0.01)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    idx = torch.randint(0, rows, (k_rows,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    mult = int(torch.bincount(idx.long(), minlength=rows).max())
+    got = comb_kernel.aircomp_combine(theta.clone(), y, idx, 0.5)
+    want = comb_ref.aircomp_combine_ref(theta, y, idx, 0.5)
+    # the atomics add in a varying order: one rounding of the element per
+    # extra add (f32 2^-23, bf16 2^-8 of max|theta|, times the multiplicity)
+    ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                               atol=mult * ulp * float(want.abs().max()))
+
+
+def test_aircomp_combine_drops_an_index_out_of_range(cuda):
+    theta = _rows(8, torch.float32, cuda)
+    y = torch.ones((3, 128), device=cuda)
+    idx = torch.tensor([2, 8, -3], dtype=torch.int32, device=cuda)
+    got = comb_kernel.aircomp_combine(theta.clone(), y, idx, 1.0)
+    want = theta.clone()
+    want[2] += 1.0
+    assert torch.equal(got, want)
+
+
+def test_combine_entry_point_leaves_theta(cuda):
+    theta = _rows(300, torch.float32, cuda, seed=5).reshape(-1)
+    before = theta.clone()
+    idx = gather_ops.row_indices_from_coords(prng.PRNGKey(6, cuda),
+                                             theta.numel(), 9_000)
+    y = _rows(idx.numel(), torch.float32, cuda, seed=6).reshape(-1)
+    got = comb_ops.combine(theta, y, idx, 32, 0.25)
+    assert torch.equal(theta, before)
+    assert torch.equal(got, comb_ops.combine(theta, y, idx, 32, 0.25,
+                                             use_kernel=False))
+
+
+def test_row_kernels_refuse_what_they_do_not_take(cuda):
+    x = _rows(4, torch.float32, cuda)
+    idx = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        clip_kernel.clip_norm(x.double(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        clip_kernel.clip_norm(torch.randn((128, 8), device=cuda).t(), 1.0)
+    with pytest.raises(TypeError, match="int32"):
+        gather_kernel.randk_gather(x, idx.long(), 1.0)
+    with pytest.raises(TypeError, match="share a dtype"):
+        comb_kernel.aircomp_combine(x, x[:2].bfloat16(), idx, 1.0)
+    with pytest.raises(ValueError, match="several devices"):
+        comb_kernel.aircomp_combine(x, x[:2], idx.cpu(), 1.0)

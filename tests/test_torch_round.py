@@ -230,10 +230,11 @@ def test_step_and_carried_state_match_reference():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(algorithm="wfl_p"), "item 7"),
-    (dict(algorithm="dp_fedavg"), "item 7"),
-    (dict(error_feedback=True), "item 7"),
-    (dict(randk_mode="server_topk"), "item 7"),
+    (dict(bank_backend="streamed", error_feedback=True), "item 8"),
+    (dict(channel=ChannelConfig(model="dropout")), "item 9"),
+    (dict(channel=ChannelConfig(model="mimo_mrc")), "item 9"),
+    (dict(compressor="threshold"), "item 10"),
+    (dict(compressor="stoch_quant"), "item 10"),
     (dict(bank_backend="streamed"), "item 8"),
     (dict(channel=ChannelConfig(model="markov_fading")), "item 9"),
     (dict(compressor="top_k_ef"), "item 10"),
