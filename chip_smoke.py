@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
    PFELS pair at r = 32, d = 9,222,858; ``ssd_scan`` at zamba2-2.7b's
    (B 8, S 2048, H 80, P 64, N 64) and mamba2-130m's (H 24, N 128) prefill;
    ``flash_attention_fwd`` at zamba2-2.7b's (B 8, S 2048, H = Hkv = 32,
-   Dh 80), beside ``scaled_dot_product_attention``; ``clip_norm``,
+   Dh 80) in bf16 (tensor cores) and f32 (CUDA cores), beside
+   ``scaled_dot_product_attention``, with TFLOP/s, the share of the bound
+   and the bf16 kernel's ``ptxas`` registers and spills; ``clip_norm``,
    ``randk_gather`` and ``aircomp_combine`` at ragged small shapes (f32
    and bf16, the combine with duplicate rows too) and at the VGG-11
    update padded to 72,054 rows of 128 lanes, with the 21,616 rand-k rows
@@ -41,13 +43,15 @@ Phases, each printing one JSON line:
    error-feedback runs against the committed reference digests.
 8. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
    prefill and 8 greedy decode steps on the card (kernels) against the
-   same params on the CPU (plain versions).
+   same params on the CPU (plain versions); and the reduced zamba2-2.7b's
+   bf16 prefill, card against CPU, within 3% of max|logit|.
 9. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
    width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
    zamba2); prefill s, decode tok/s, peak memory, finite logits and
-   in-vocabulary tokens.
+   in-vocabulary tokens; then one more zamba2-2.7b prefill under the
+   profiler: the flash kernel's device ms and share of the prefill.
 
 Then the kernel summary line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -302,14 +306,30 @@ SSD_SMALL = ((1, 64, 2, 32, 32, 32), (2, 96, 3, 64, 64, 32),
 # prefill, and ragged small shapes (GQA, Sq < Skv, a window)
 FLASH_ZAMBA2 = (8, 2048, 2048, 32, 32, 80, None)
 FLASH_SMALL = ((1, 100, 100, 4, 4, 64, None), (2, 130, 130, 8, 2, 80, None),
-               (1, 50, 77, 4, 2, 64, None), (1, 200, 200, 4, 4, 80, 37))
+               (1, 50, 77, 4, 2, 64, None), (1, 200, 200, 4, 4, 80, 37),
+               (1, 300, 300, 2, 2, 96, None), (1, 190, 250, 2, 2, 128, 64),
+               (1, 257, 257, 2, 1, 160, 100))
+# a mid-size shape at zamba2-2.7b's row length (GQA), where the bf16
+# route is also held to its emulated rounding
+FLASH_MID = (1, 2048, 2048, 4, 2, 80, None)
 # tolerances against the plain versions, relative to the largest value:
 # ssd_scan sums up to 128 terms per chunk and carries a recurrence over
-# 16 chunks in another order than the plain einsums (measured 7e-6);
-# flash attention in f32 sums in another order (1e-5), and in bf16 both
-# round an f32 result, so they differ by at most one bf16 ulp (2^-7)
+# 16 chunks in another order than the plain einsums (measured 7e-6)
 SSD_TOL = 5e-5
-FLASH_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# flash attention, |kernel - plain (f32)| <= rel |plain| + abs_of * max|x|:
+# f32 (CUDA cores) sums in another order: 1e-5 |plain| + 1e-5 max|plain|.
+# bf16 (tensor cores) rounds P to bf16 before P V, as the reference's
+# serving attention does: each p in (0, 1] moves by at most 2^-9 of
+# itself, and l sums the unrounded p, so |sum_j dp_j v_j| / l <= 2^-9
+# max|v|; the output's own rounding adds 2^-9 |out| at most. Twice that
+# bound: 2^-7 |plain| + 2^-8 max|v| (x = v). At the small and mid-size
+# shapes the bf16 output is also held, element by element, to the
+# emulation of the route's rounding (ref.tensor_core_route, plain torch
+# ops on the card beside the plain version; TF32 off): 2 bf16 ulps,
+# plus ulp(p) |v| / l for each p near enough to a rounding midpoint that
+# the card may round it the other way, plus 2^-18 max|v|.
+FLASH_TOL = {"float32": (1e-5, 1e-5, "plain"),
+             "bfloat16": (2 ** -7, 2 ** -8, "v")}
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, seed):
@@ -417,30 +437,55 @@ def _plain_attention_by_row(q, k, v, window):
                       for i in range(q.shape[0])])
 
 
-def check_flash_at(shape, dtype_name, seed, timed):
+def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     import torch
-    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.kernels.flash_attn import kernel, ref
     b, sq, skv, h, hkv, dh, window = shape
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, sq, h, dh), generator=g, device="cuda").to(dtype)
     k = torch.randn((b, skv, hkv, dh), generator=g, device="cuda").to(dtype)
     v = torch.randn((b, skv, hkv, dh), generator=g, device="cuda").to(dtype)
+    kept = [t.clone() for t in (q, k, v)]
     o1 = kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
     o2 = kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
     want = _plain_attention_by_row(q.float(), k.float(), v.float(), window)
     torch.cuda.synchronize()
+    intact = all(torch.equal(x, y) for x, y in zip((q, k, v), kept))
+    del kept
     err = (o1.float() - want).abs()
-    tol = FLASH_TOL[dtype_name]
-    ok = bool((err <= tol * want.abs() + 1e-5 * want.abs().max()).all())
+    rel, abs_of, of = FLASH_TOL[dtype_name]
+    scale = (v if of == "v" else want).float().abs().max()
+    limit = rel * want.abs() + abs_of * scale
+    ok = bool((err <= limit).all())
     bit = bool(torch.equal(o1, o2))
     line = {"phase": "kernels", "kernel": "flash_attention_fwd",
             "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "Hkv": hkv,
                       "Dh": dh, "window": window, "causal": True},
-            "dtype": dtype_name, "max_abs_err": float(err.max()),
+            "dtype": dtype_name,
+            "route": ("tensor cores (wgmma, TMA)" if dtype == torch.bfloat16
+                      else "CUDA cores"),
+            "max_abs_err": float(err.max()),
+            "max_err_over_limit": float((err / limit).max()),
             "within_tolerance": ok, "bit_identical": bit,
-            "tolerance": f"|kernel - plain (f32)| <= {tol} |plain| + 1e-5 "
-                         f"max|plain|"}
+            "inputs_unchanged": intact,
+            "tolerance": f"|kernel - plain (f32)| <= {rel} |plain| + "
+                         f"{abs_of} max|{of}|"}
+    emulated = True
+    if emulate:
+        emu, emu_limit = ref.tensor_core_route(q, k, v, causal=True,
+                                               window=window)
+        emu_err = (o1.float() - emu.float()).abs()
+        emulated = bool((emu_err <= emu_limit).all())
+        line.update({
+            "emulated_max_abs_err": float(emu_err.max()),
+            "emulated_max_err_over_limit": float((emu_err / emu_limit).max()),
+            "emulated_median_limit": float(emu_limit.median()),
+            "within_emulated_limit": emulated,
+            "emulated_tolerance": "|kernel - ref.tensor_core_route| <= 2 "
+                                  "bf16 ulps + ulp(p) |v| / l over p near a "
+                                  "rounding midpoint + 2^-18 max|v|"})
+        del emu, emu_limit, emu_err
     summary = None
     if timed:
         n_bytes, flops = flash_work(b, sq, skv, h, hkv, dh, window,
@@ -465,8 +510,12 @@ def check_flash_at(shape, dtype_name, seed, timed):
                          "f32_cuda_cores": flops / PEAK_F32_FLOP_PER_S * 1e3,
                          "bf16_tensor_cores":
                              flops / PEAK_BF16_FLOP_PER_S * 1e3},
+            "tflop_per_s": flops / times["kernel"] / 1e9,
+            "share_of_bound": bound / times["kernel"],
             "plain_note": "the plain version one batch row at a time",
             "library": "scaled_dot_product_attention (causal, same GQA)"})
+        if dtype == torch.bfloat16:
+            line["ptxas"] = flash_ptxas().get(dh)
         summary = {"max_abs_err": float(err.max()), "ms": times["kernel"],
                    "plain_ms": times["plain"], "bound_ms": bound,
                    "bound_by": by, "library_ms": times["library"]}
@@ -477,12 +526,44 @@ def check_flash_at(shape, dtype_name, seed, timed):
     if not ok:
         failures.append(f"flash_attention_fwd {shape} disagrees with its "
                         f"plain version")
+    if not emulated:
+        failures.append(f"flash_attention_fwd {shape} departs from the "
+                        f"emulated rounding of its route")
     if not bit:
         failures.append(f"flash_attention_fwd {shape} is not bit-identical "
                         f"run to run")
+    if not intact:
+        failures.append(f"flash_attention_fwd {shape}: q, k or v changed "
+                        f"across the launches")
     if failures:
         raise AssertionError("; ".join(failures))
     return summary
+
+
+def flash_ptxas():
+    """Registers and spills of the tensor-core kernel at each Dh, from
+    this process's build log of ``flash_attn.cu`` (empty if the library
+    was built earlier)."""
+    import re
+    from repro_torch.kernels import _build
+    out, dh = {}, None
+    for ln in _build.BUILD_LOGS.get("flash_attn", "").splitlines():
+        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", ln)
+        if m:
+            dh = int(m.group(1))
+            out.setdefault(dh, {})
+            continue
+        if dh is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[dh]["spill_stores"] = int(m.group(1))
+            out[dh]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[dh]["registers_at_entry"] = int(m.group(1))
+            dh = None
+    return out
 
 
 # clip_norm, randk_gather, aircomp_combine: the paper's VGG-11 update
@@ -733,16 +814,22 @@ def phase_kernels():
     check_ssd_at(SSD_MAMBA2, "bfloat16", seed=12, timed=True)
     for i, shape in enumerate(FLASH_SMALL):
         for dtype in ("float32", "bfloat16"):
-            check_flash_at(shape, dtype, seed=i, timed=False)
+            check_flash_at(shape, dtype, seed=i, timed=False,
+                           emulate=dtype == "bfloat16")
+    check_flash_at(FLASH_MID, "bfloat16", seed=len(FLASH_SMALL), timed=False,
+                   emulate=True)
     summary["flash_attention_fwd"] = check_flash_at(
         FLASH_ZAMBA2, "bfloat16", seed=13, timed=True)
+    # the f32 route (CUDA cores) at the same shape, for its time
+    check_flash_at(FLASH_ZAMBA2, "float32", seed=14, timed=True)
     summary.update(check_row_kernels())
     return summary
 
 
 def profile_call(label: str, fn, top: int = 25):
     """``fn()`` under ``torch.profiler``: device busy time against the
-    call's wall time, and device time by kernel name."""
+    call's wall time, and device time by kernel name. Returns the emitted
+    line with every kernel's (device ms, calls, name) under ``all``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -761,11 +848,15 @@ def profile_call(label: str, fn, top: int = 25):
             rows.append((dev_us, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    emit({"phase": "profile", "what": label, "wall_s": wall,
-          "device_busy_s": busy_s,
-          "device_idle_share": 1.0 - busy_s / wall if wall > 0 else None,
-          "top_kernels": [{"name": k[:120], "calls": c, "device_ms": t / 1e3}
-                          for t, c, k in rows[:top]]})
+    line = {"phase": "profile", "what": label, "wall_s": wall,
+            "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall if wall > 0 else None,
+            "top_kernels": [{"name": k[:120], "calls": c,
+                             "device_ms": t / 1e3}
+                            for t, c, k in rows[:top]]}
+    emit(line)
+    line["all"] = [(t / 1e3, c, k) for t, c, k in rows]
+    return line
 
 
 def profile_round(trainer, state, x, y):
@@ -775,8 +866,11 @@ def profile_round(trainer, state, x, y):
 
 def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
                   prompt_len: int = 2048, steps: int = 8):
-    """One more full-width prefill and ``steps`` decode steps of ``arch``
-    (the serve phase's shapes), each under the profiler."""
+    """Three full-width prefills of ``arch`` (the serve phase's shapes)
+    on the host clock, then one more prefill and ``steps`` decode steps,
+    each under the profiler (no decode steps with ``steps=0``). Returns
+    the prefill's profile line and the three prefills' seconds: unlike
+    ``serve``'s first prefill, these run warm."""
     import torch
     from repro_torch import prng
     from repro_torch.configs import get_config
@@ -798,11 +892,21 @@ def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
                                                   box["caches"])
             tok = torch.argmax(logits, dim=-1)
 
-    profile_call(f"{arch} prefill, batch {batch}, prompt {prompt_len}",
-                 run_prefill)
-    profile_call(f"{arch} {steps} decode steps, batch {batch}", run_decode)
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_prefill()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    pre = profile_call(f"{arch} prefill, batch {batch}, prompt "
+                       f"{prompt_len}", run_prefill)
+    if steps:
+        profile_call(f"{arch} {steps} decode steps, batch {batch}",
+                     run_decode)
     del params, box
     torch.cuda.empty_cache()
+    return pre, warm
 
 
 def phase_main_path(profile: bool):
@@ -1217,14 +1321,55 @@ def phase_serve_parity():
         raise AssertionError("; ".join(failures))
 
 
+def phase_serve_parity_bf16():
+    """Reduced zamba2-2.7b in bf16, the serving dtype: the tensor-core
+    route rounds P to bf16 before P V; the prefill's logits on the card
+    against the CPU's plain path within the 3% of max|logit| that
+    tests/test_torch_serve.py states for bf16. It runs after ``serve``, so
+    that serve's first (timed) bf16 prefill is not warmed by it."""
+    from repro_torch import prng
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attn import kernel as flash_kernel
+    from repro_torch.models import transformer as T
+
+    failures = []
+    cfg = reduced_config("zamba2-2.7b")
+    params = T.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+    toks = prng.randint(prng.PRNGKey(1, "cpu"), (4, 128), 0, cfg.vocab_size)
+    flash_kernel.reset_launch_counts()
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        out, _, _ = T.prefill(_tree_to(params, dev), cfg,
+                              {"tokens": toks.to(dev)}, extra_slots=0)
+        logits[dev] = out.float().cpu()
+        if dev == "cuda":
+            launches = dict(flash_kernel.LAUNCHES)
+    gap = float((logits["cuda"] - logits["cpu"]).abs().max()
+                / logits["cpu"].abs().max())
+    n_attn = cfg.block_pattern.count("attn") * cfg.resolved_repeat()
+    emit({"phase": "serve_parity_on_card", "problem": "reduced zamba2-2.7b, "
+          f"{cfg.dtype}, batch 4, prompt 128, prefill", "dtype": cfg.dtype,
+          "launches_on_card": launches, "max_logit_gap_rel_to_max": gap,
+          "tolerance": "logits 0.03 of max|logit|"})
+    if cfg.dtype != "bfloat16":
+        failures.append(f"the reduced zamba2-2.7b is {cfg.dtype}, not bf16")
+    if launches != {"flash_attention_fwd": n_attn}:
+        failures.append(f"bf16 prefill launched {launches}")
+    if not gap <= 0.03:
+        failures.append("bf16 prefill: the card and the CPU disagree")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 SERVE_RUNS = (("zamba2-2.7b", {"ssd_scan": 45, "flash_attention_fwd": 9}),
               ("mamba2-130m", {"ssd_scan": 24, "flash_attention_fwd": 0}))
 
 
-def phase_serve():
+def phase_serve(profile: bool):
     """The serving main path through ``serve``, the entry point a user
     calls, at full width; the launch counters are zeroed just before each
-    call and read just after."""
+    call and read just after. Then one more zamba2-2.7b prefill under the
+    profiler (and, with ``profile``, 8 decode steps)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import kernel as flash_kernel
@@ -1271,6 +1416,24 @@ def phase_serve():
         launches_of[arch] = launches
         del r
     torch.cuda.empty_cache()
+    # more zamba2-2.7b prefills: three warm ones on the host clock (serve's
+    # first prefill also pays first-call costs), then one under the
+    # profiler: the flash kernel's device time and its share of the
+    # prefill's device time
+    pre, warm = profile_serve("zamba2-2.7b", batch, prompt_len,
+                              steps=8 if profile else 0)
+    flash = [(t, c) for t, c, k in pre["all"] if "flash_fwd" in k]
+    flash_ms = sum(t for t, _ in flash)
+    emit({"phase": "serve", "arch": "zamba2-2.7b",
+          "what": "three warm prefills, then one profiled (batch 8, "
+                  "prompt 2048)",
+          "prefill_warm_s": warm,
+          "prefill_wall_s": pre["wall_s"],
+          "prefill_device_busy_s": pre["device_busy_s"],
+          "flash_attention_fwd_device_ms": flash_ms,
+          "flash_attention_fwd_calls": sum(c for _, c in flash),
+          "flash_share_of_prefill_device_time":
+              flash_ms / 1e3 / pre["device_busy_s"]})
     if failures:
         raise AssertionError("; ".join(failures))
     return launches_of["zamba2-2.7b"]
@@ -1281,9 +1444,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile one more main-path round and one more "
                          "round of each baseline after the checked ones, "
-                         "and one more zamba2-2.7b prefill and 8 decode "
-                         "steps after the serve phase (device busy time, "
-                         "time by kernel)")
+                         "and 8 zamba2-2.7b decode steps after the serve "
+                         "phase's profiled prefill (device busy time, time "
+                         "by kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1301,9 +1464,8 @@ def main(argv=None) -> int:
     phase_baselines(args.profile)
     phase_parity()
     phase_serve_parity()
-    launches.update(phase_serve())
-    if args.profile:
-        profile_serve()
+    launches.update(phase_serve(args.profile))
+    phase_serve_parity_bf16()
     from repro_torch.kernels.pfels_transmit import kernel
     pfels_src = "src/repro_torch/csrc/pfels_transmit.cu"
     rows = [("pfels_transmit.client_sumsq", "client_sumsq", pfels_src,

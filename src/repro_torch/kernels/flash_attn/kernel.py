@@ -4,9 +4,12 @@
 
 The tensor's device is the route: a CPU tensor runs the plain version
 (``ref.attention_ref``); a CUDA tensor launches the kernel or raises. The
-wrapper checks device, dtypes, shapes and contiguity, allocates the output
-with ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to ``LAUNCHES["flash_attention_fwd"]``.
+dtype picks the kernel's design: bf16 runs on the tensor cores (wgmma,
+TMA loads; P is rounded to bf16 before P V), f32 on the CUDA cores. The
+wrapper checks device, dtypes, shapes, contiguity and (bf16: TMA) 16-byte
+alignment, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch reports an error, and adds one to
+``LAUNCHES["flash_attention_fwd"]``.
 
 Both routes refuse the inputs on which the TPU kernel and its oracle part
 ways: a query row with no key to attend to (causal with Sq > Skv, or a
@@ -90,6 +93,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -2,9 +2,10 @@
 kernel's CPU route (the plain version ``attention_ref``) against the
 reference's Pallas ``flash_attention_fwd`` in interpret mode and its
 ``attention_ref``; the blockwise ``flash_attention`` (positions, a validity
-mask) against ``repro.models.attention.flash_attention``; and ``attn_train``
+mask) against ``repro.models.attention.flash_attention``; ``attn_train``
 / ``attn_decode`` with weights carried across, the decode over a ring
-buffer of slots."""
+buffer of slots; and the rounding of the kernel's bf16 (tensor-core) route,
+emulated blockwise, within the tolerance the card is held to."""
 import dataclasses
 
 import jax
@@ -21,6 +22,7 @@ from repro_torch import convert
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.kernels.flash_attn import kernel as t_kernel
 from repro_torch.kernels.flash_attn import ops as t_ops
+from repro_torch.kernels.flash_attn import ref as t_ref
 from repro_torch.models import attention as ta
 
 # f32 softmax attention in another summation order (one softmax against
@@ -84,6 +86,55 @@ def test_plain_attention_bf16_matches_pallas():
                                block_kv=32, interpret=True), np.float32)
     np.testing.assert_allclose(out.float().numpy(), want, rtol=2 ** -7,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_tensor_core_rounding_within_the_stated_bound(window):
+    """At zamba2-2.7b's row length (S 2048, Dh 80, causal; and a window of
+    300, whose rows past it start on wholly masked tiles) the bf16 route's
+    rounding of P stays within 2^-7 |plain| + 2^-8 max|v| of the f32
+    plain version, the bound chip_smoke.py and the card's tests hold the
+    kernel to, and it does move the output."""
+    rng = np.random.default_rng(2048 + (window or 0))
+    q, k, v = (convert.tensor_from_numpy(
+        rng.standard_normal((1, 2048, 2, 80)).astype(np.float32),
+        "cpu").bfloat16() for _ in range(3))
+    got = t_ref.tensor_core_route(q, k, v, causal=True,
+                                  window=window)[0].float()
+    want = t_kernel.flash_attention_fwd(q.float(), k.float(), v.float(),
+                                        causal=True, window=window)
+    want_jax = np.asarray(j_ref(*(jnp.asarray(t.float().numpy())
+                                  for t in (q, k, v)),
+                                causal=True, window=window))
+    np.testing.assert_allclose(want.numpy(), want_jax, rtol=RTOL, atol=ATOL)
+    err = (got - want).abs()
+    limit = 2 ** -7 * want.abs() + 2 ** -8 * v.float().abs().max()
+    assert bool((err <= limit).all()), float((err / limit).max())
+    assert float(err.max()) > 0
+
+
+@pytest.mark.parametrize("case", [(1, 300, 300, 4, 2, 80, None),
+                                  (1, 257, 257, 2, 1, 160, 100)])
+def test_tensor_core_emulation_limit_covers_another_summation_order(case):
+    """The limit that holds the card to the emulated rounding covers what
+    another summation order of S (the card's tensor cores) does: the same
+    emulation with the head dimension of q and k permuted sums S in
+    another order, rounds some p the other way, and stays within it."""
+    b, sq, skv, h, hkv, dh, window = case
+    q, k, v = (_t(a).bfloat16() for a in _qkv(b, sq, skv, h, hkv, dh,
+                                              seed=dh))
+    out, limit = t_ref.tensor_core_route(q, k, v, causal=True, window=window)
+    perm = torch.from_numpy(np.random.default_rng(dh).permutation(dh))
+    other, _ = t_ref.tensor_core_route(q[..., perm].contiguous(),
+                                       k[..., perm].contiguous(), v,
+                                       causal=True, window=window)
+    err = (other.float() - out.float()).abs()
+    assert float(err.max()) > 0
+    assert bool((err <= limit).all()), float((err / limit).max())
+    # the limit is a few ulps, far inside the bound against the plain
+    # version
+    bound = 2 ** -8 * v.float().abs().max()
+    assert float(limit.median()) < float(bound) / 8
 
 
 def test_wrappers_refuse_rows_with_no_key():

@@ -190,13 +190,17 @@ def test_ssd_scan_refuses_what_it_cannot_hold(cuda):
                                          torch.float32), chunk=256)
 
 
-# (b, sq, skv, h, hkv, dh, causal, window): MHA and GQA, Dh 64 and 80,
-# ragged tiles, Sq < Skv, a window, no mask
+# (b, sq, skv, h, hkv, dh, causal, window): MHA and GQA, every Dh the
+# kernel takes (64 and 128 whole 64-column boxes, 80, 96 and 160 with a
+# tail box), ragged tiles, Sq < Skv, windows, no mask
 FLASH_CASES = [(1, 100, 100, 4, 4, 64, True, None),
                (2, 130, 130, 8, 2, 80, True, None),
                (1, 50, 77, 4, 2, 64, True, None),
                (1, 200, 200, 4, 4, 80, True, 37),
-               (2, 64, 96, 2, 1, 128, False, None)]
+               (2, 64, 96, 2, 1, 128, False, None),
+               (1, 300, 300, 2, 2, 96, True, None),
+               (1, 257, 257, 2, 1, 160, True, 100),
+               (1, 33, 500, 2, 2, 96, False, 200)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -217,10 +221,17 @@ def test_flash_attn_matches_plain_and_is_deterministic(cuda, case, dtype):
     assert o1.dtype == dtype and torch.equal(o1, o2)
     want = flash_ref.attention_ref(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
-    # f32: another summation order (1e-5); bf16: the output's rounding,
-    # at most one bf16 ulp, 2^-7 of the value
-    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
-    torch.testing.assert_close(o1.float(), want, rtol=rtol, atol=1e-5)
+    if dtype == torch.float32:
+        # the CUDA-core route sums in another order: a few ulp
+        torch.testing.assert_close(o1.float(), want, rtol=1e-5, atol=1e-5)
+    else:
+        # the tensor-core route rounds P to bf16 before P V (each p by at
+        # most 2^-9 of itself; l sums the unrounded p, so the output moves
+        # by at most 2^-9 max|v|) and rounds the output (2^-9 of itself):
+        # held to twice that, 2^-7 |plain| + 2^-8 max|v|
+        atol = 2 ** -8 * float(v.float().abs().max())
+        torch.testing.assert_close(o1.float(), want, rtol=2 ** -7,
+                                   atol=atol)
 
 
 def test_flash_attn_refuses_what_it_does_not_take(cuda):
@@ -233,6 +244,11 @@ def test_flash_attn_refuses_what_it_does_not_take(cuda):
                                          .transpose(1, 2), q, q)
     with pytest.raises(TypeError, match="share a dtype"):
         flash_kernel.flash_attention_fwd(q, q.bfloat16(), q)
+    # bf16 loads by TMA need 16-byte aligned tensors
+    flat = torch.randn(16 * 2 * 64 + 1, device=cuda).bfloat16()
+    qm = flat[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_kernel.flash_attention_fwd(qm, qm, qm)
 
 
 def test_reduced_prefill_on_the_card_goes_through_both_kernels(cuda):
