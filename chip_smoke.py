@@ -21,9 +21,11 @@ Phases, each printing one JSON line:
    ``scaled_dot_product_attention``, with TFLOP/s, the share of the bound
    and the bf16 kernel's ``ptxas`` registers and spills; ``clip_norm``,
    ``randk_gather`` and ``aircomp_combine`` at ragged small shapes (f32
-   and bf16, the combine with duplicate rows too) and at the VGG-11
-   update padded to 72,054 rows of 128 lanes, with the 21,616 rand-k rows
-   of p = 0.3.
+   and bf16, the combine with duplicate rows too; the clip and the
+   combine also on views off 16-byte alignment), the clip at 268 MB
+   (above L2), and at the VGG-11 update padded to 72,054 rows of 128
+   lanes, with the 21,616 rand-k rows of p = 0.3, where the device
+   kernels of one clip and one combine call are counted (1 each).
 4. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
    VGG-11 (d = 9,222,858) with N = 1000 clients of 50 CIFAR-size
    synthetic images, r = 32, tau = 5, transmit clip 0.25, fused kernels,
@@ -41,11 +43,21 @@ Phases, each printing one JSON line:
 7. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
    (kernels) against unfused (plain torch), and the PFELS, baseline and
    error-feedback runs against the committed reference digests.
-8. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
+8. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
+   PyTorch's defaults around the phase (TF32 on), so that the package's
+   own scoping is what is checked: one local step's gradient at
+   BENCH_CNN_CIFAR's and VGG-11's widths against the CPU (and without
+   the scope, to show the check sees TF32), two rounds of
+   BENCH_CNN_CIFAR at the default config against the CPU route as
+   digests, and one VGG-11 round repeated bit for bit, beside the same
+   round without the package's scope under ``phase_device``'s flags (TF32
+   off, nondeterministic algorithms allowed): whether that repeats, and
+   what the deterministic algorithms cost in wall and device time.
+9. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
    prefill and 8 greedy decode steps on the card (kernels) against the
    same params on the CPU (plain versions); and the reduced zamba2-2.7b's
    bf16 prefill, card against CPU, within 3% of max|logit|.
-9. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
+10. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
    width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
@@ -61,6 +73,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -581,6 +594,8 @@ ROW_SMALL = ((37, 1), (300, 77), (513, 513))
 # atomics add in a varying order (one rounding per extra add)
 ROW_ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
 CLIP_OUT_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+# clip_norm above L2's size: 2^19 rows of 128 f32 (268 MB)
+CLIP_ABOVE_L2_ROWS = 2 ** 19
 
 
 def _randn(shape, seed, dtype_name="float32", scale=1.0):
@@ -610,10 +625,30 @@ def _max_rel(a, b):
                              diff / b.abs()).max())
 
 
-def check_clip_at(rows, dtype_name, seed, timed):
+def _misaligned(t):
+    """A copy of ``t`` whose start lies one element past a 16-byte
+    boundary: the kernels' path for operands that vector loads and
+    reductions cannot take."""
+    import torch
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def device_kernels(fn) -> int:
+    """Kernels, copies and fills the card runs for one call of ``fn``,
+    counted by ``torch.profiler``."""
+    return sum(c for _, c, _ in _profiled(fn)[1])
+
+
+def check_clip_at(rows, dtype_name, seed, timed, misaligned=False):
     import torch
     from repro_torch.kernels.clip_norm import kernel, ref
     x = _randn((rows, 128), seed, dtype_name, scale=0.01)
+    if misaligned:
+        x = _misaligned(x)
     clip = 0.25
     o1, n1 = kernel.clip_norm(x, clip)
     o2, n2 = kernel.clip_norm(x, clip)
@@ -624,6 +659,7 @@ def check_clip_at(rows, dtype_name, seed, timed):
     bit = bool(torch.equal(o1, o2) and torch.equal(n1, n2))
     line = {"phase": "kernels", "kernel": "clip_norm",
             "shape": {"R": rows, "lanes": 128}, "dtype": dtype_name,
+            "misaligned": misaligned,
             "clip": clip, "norm": float(n1), "norm_rel_gap": norm_rel,
             "out_max_rel_gap": out_rel,
             "out_max_abs_err": float((o1.float() - o_p.float()).abs().max()),
@@ -641,15 +677,22 @@ def check_clip_at(rows, dtype_name, seed, timed):
         line.update({"times_ms": times,
                      "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
                      "bytes": 2 * n * elem + 4,
+                     "device_kernels_per_call": device_kernels(
+                         fns["kernel"]),
                      "library": "torch.linalg.vector_norm: the first pass "
                                 "(the norm) only"})
         summary = {"max_abs_err": line["out_max_abs_err"],
                    "ms": times["kernel"], "plain_ms": times["plain"],
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": times["library_first_pass"],
-                   "cold_ms": line["cold_ms"]}
+                   "cold_ms": line["cold_ms"],
+                   "device_kernels_per_call":
+                       line["device_kernels_per_call"]}
     emit(line)
     failures = []
+    if timed and line["device_kernels_per_call"] != 1:
+        failures.append(f"clip_norm ran {line['device_kernels_per_call']} "
+                        f"device kernels a call, expected 1")
     if not (norm_rel <= 1e-6 and out_rel <= CLIP_OUT_TOL[dtype_name]):
         failures.append(f"clip_norm R={rows} {dtype_name} disagrees with "
                         f"its plain version")
@@ -708,11 +751,15 @@ def check_gather_at(rows, k_rows, dtype_name, seed, timed):
 
 
 def check_combine_at(rows, k_rows, dtype_name, seed, timed,
-                     duplicates=False):
+                     duplicates=False, misaligned=False):
     import torch
     from repro_torch.kernels.aircomp_combine import kernel, ref
     theta = _randn((rows, 128), seed, dtype_name)
     y = _randn((k_rows, 128), seed + 1, dtype_name, scale=0.01)
+    # the kernel's copies of theta, and y, start off 16-byte alignment
+    copy = _misaligned if misaligned else torch.clone
+    if misaligned:
+        y = _misaligned(y)
     if duplicates:
         g = torch.Generator(device="cuda").manual_seed(seed)
         idx = torch.randint(0, rows, (k_rows,), generator=g, device="cuda",
@@ -720,8 +767,8 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
     else:
         idx = _row_indices(rows, k_rows, seed)
     inv = 1.0 / (MAIN_R * 0.05)
-    o1 = kernel.aircomp_combine(theta.clone(), y, idx, inv)
-    o2 = kernel.aircomp_combine(theta.clone(), y, idx, inv)
+    o1 = kernel.aircomp_combine(copy(theta), y, idx, inv)
+    o2 = kernel.aircomp_combine(copy(theta), y, idx, inv)
     o_p = ref.aircomp_combine_ref(theta, y, idx, inv)
     torch.cuda.synchronize()
     err = float((o1.float() - o_p.float()).abs().max())
@@ -738,6 +785,7 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
     line = {"phase": "kernels", "kernel": "aircomp_combine",
             "shape": {"R": rows, "k_rows": k_rows, "lanes": 128},
             "dtype": dtype_name, "duplicates": duplicates,
+            "misaligned": misaligned,
             "max_multiplicity": mult, "max_abs_err": err,
             "within_tolerance": ok, "bit_identical": bit,
             "tolerance": tolerance}
@@ -756,15 +804,23 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
         line.update({"times_ms": times,
                      "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
                      "bytes": n_bytes,
+                     "device_kernels_per_call": device_kernels(
+                         fns["kernel"]),
                      "plain_note": "index_add_ on a clone of theta",
                      "library": "torch.Tensor.index_add_(0, idx, y, "
                                 "alpha=inv), in place"})
         summary = {"max_abs_err": err, "ms": times["kernel"],
                    "plain_ms": times["plain"], "bound_ms": bound,
                    "bound_by": by, "library_ms": times["library"],
-                   "cold_ms": line["cold_ms"]}
+                   "cold_ms": line["cold_ms"],
+                   "device_kernels_per_call":
+                       line["device_kernels_per_call"]}
     emit(line)
     failures = []
+    if timed and line["device_kernels_per_call"] != 1:
+        failures.append(f"aircomp_combine ran "
+                        f"{line['device_kernels_per_call']} device kernels "
+                        f"a call, expected 1")
     if not ok:
         failures.append(f"aircomp_combine {rows}x{k_rows} {dtype_name} "
                         f"(duplicates {duplicates}) disagrees with its plain "
@@ -779,8 +835,10 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
 
 def check_row_kernels():
     """The three row kernels at ragged small shapes in f32 and bf16
-    (the combine with duplicate rows too), then timed at the VGG-11
-    shapes in f32."""
+    (the combine with duplicate rows too; the clip and the combine also
+    on operands off 16-byte alignment), the clip above L2's size, then
+    timed at the VGG-11 shapes in f32 with the device kernels of one call
+    counted."""
     for i, (rows, k_rows) in enumerate(ROW_SMALL):
         for dtype in ("float32", "bfloat16"):
             check_clip_at(rows, dtype, seed=i, timed=False)
@@ -788,6 +846,13 @@ def check_row_kernels():
             check_combine_at(rows, k_rows, dtype, seed=i, timed=False)
             check_combine_at(rows, 4 * k_rows, dtype, seed=i, timed=False,
                              duplicates=True)
+            check_clip_at(rows, dtype, seed=i, timed=False, misaligned=True)
+            check_combine_at(rows, k_rows, dtype, seed=i, timed=False,
+                             misaligned=True)
+            check_combine_at(rows, 4 * k_rows, dtype, seed=i, timed=False,
+                             duplicates=True, misaligned=True)
+    # x of 268 MB, above the 50 MB L2: the second read comes from HBM
+    check_clip_at(CLIP_ABOVE_L2_ROWS, "float32", seed=20, timed=False)
     k_rows = MAIN_K // 128
     return {"clip_norm": check_clip_at(VGG_ROWS, "float32", seed=21,
                                        timed=True),
@@ -826,10 +891,9 @@ def phase_kernels():
     return summary
 
 
-def profile_call(label: str, fn, top: int = 25):
-    """``fn()`` under ``torch.profiler``: device busy time against the
-    call's wall time, and device time by kernel name. Returns the emitted
-    line with every kernel's (device ms, calls, name) under ``all``."""
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler``: its wall seconds, and (device us,
+    calls, name) of every kernel, copy and fill the card ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -846,6 +910,14 @@ def profile_call(label: str, fn, top: int = 25):
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
             rows.append((dev_us, evt.count, evt.key))
+    return wall, rows
+
+
+def profile_call(label: str, fn, top: int = 25):
+    """``fn()`` under ``torch.profiler``: device busy time against the
+    call's wall time, and device time by kernel name. Returns the emitted
+    line with every kernel's (device ms, calls, name) under ``all``."""
+    wall, rows = _profiled(fn)
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     line = {"phase": "profile", "what": label, "wall_s": wall,
@@ -1166,19 +1238,44 @@ def phase_baselines(profile: bool):
         raise AssertionError("; ".join(failures))
 
 
-def _golden_digests(**overrides):
+def _digest(a):
     import numpy as np
+    a = np.asarray(a.detach().cpu(), np.float64)
+    return [float(a.sum()), float(np.abs(a).sum()), float((a * a).sum())]
+
+
+def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
+    """Digests of ``Trainer.run`` for ``cfg.rounds`` rounds from ``params``
+    and data ``x``, ``y``, all moved to ``device``, with the golden
+    problem's keys (init key 1, run key 2): sum, |sum| and sum of squares
+    of the params and of the last Delta_hat, and every round's metrics."""
     import torch
     from repro_torch import prng
-    from repro_torch.configs import BENCH_MLP, PFELSConfig
-    from repro_torch.data import make_federated_classification
     from repro_torch.fl import Trainer, replace
     from repro_torch.models import cnn
     from repro_torch.tree import ravel
 
-    def digest(a):
-        a = np.asarray(a.detach().cpu(), np.float64)
-        return [float(a.sum()), float(np.abs(a).sum()), float((a * a).sum())]
+    params = {n: t.to(device) for n, t in params.items()}
+    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, model_cfg, b),
+                      params, device=device)
+    state = replace(trainer.init(prng.PRNGKey(1, device)),
+                    key=prng.PRNGKey(2, device))
+    end, metrics = trainer.run(state, x.to(device), y.to(device),
+                               rounds=cfg.rounds)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out = {"params": _digest(ravel(end.params)),
+           "prev_delta": _digest(end.prev_delta)}
+    for k in ("train_loss", "update_norm", "beta", "energy", "eps_round"):
+        out[k] = [float(v) for v in metrics[k]]
+    return out
+
+
+def _golden_digests(**overrides):
+    from repro_torch import prng
+    from repro_torch.configs import BENCH_MLP, PFELSConfig
+    from repro_torch.data import make_federated_classification
+    from repro_torch.models import cnn
 
     key = prng.PRNGKey(0)
     params = cnn.init_cnn(key, BENCH_MLP)
@@ -1188,16 +1285,7 @@ def _golden_digests(**overrides):
     cfg = PFELSConfig(num_clients=20, clients_per_round=4, local_steps=2,
                       local_lr=0.05, compression_ratio=0.3, epsilon=2.0,
                       rounds=2, **overrides)
-    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, BENCH_MLP, b),
-                      params)
-    state = replace(trainer.init(prng.PRNGKey(1)), key=prng.PRNGKey(2))
-    end, metrics = trainer.run(state, x, y, rounds=2)
-    torch.cuda.synchronize()
-    out = {"params": digest(ravel(end.params)),
-           "prev_delta": digest(end.prev_delta)}
-    for k in ("train_loss", "update_norm", "beta", "energy", "eps_round"):
-        out[k] = [float(v) for v in metrics[k]]
-    return out
+    return _round_digests(BENCH_MLP, params, x, y, cfg)
 
 
 def _max_rel_gap(a, b):
@@ -1252,6 +1340,256 @@ def phase_parity():
     for name, _ in runs:
         if not gaps[f"{name}_vs_reference"] <= 1e-4:
             failures.append(f"{name} digests disagree with the reference")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# conv_parity_on_card's tolerances, derived on the CPU by
+# tests/test_torch_cnn.py with f64 convolutions (which move what summing
+# in another order moves, and more) and with TF32-rounded operands in
+# place of f32 ones. One local step's gradient: f64 moves it by less than
+# a tenth of the limit, TF32 by more than ten times it. Two rounds of
+# BENCH_CNN_CIFAR at the default config, with these keys: the same. At
+# other keys a ReLU or max-pool somewhere among the 32 x 5 steps can
+# switch under any f32 difference and move the digests as far as TF32
+# does; the step gradient has no such switch.
+CONV_GRAD_TOL = 1e-5
+CONV_DIGEST_TOL = 1e-4
+
+
+def _digest_gaps(a, b):
+    """Per entry, the largest gap of ``a`` against ``b`` relative to
+    ``b``; the sum of a vector, which cancels, against its sum of
+    magnitudes."""
+    gaps = {}
+    for k in b:
+        scale = [abs(v) for v in b[k]]
+        if k in ("params", "prev_delta"):
+            scale[0] = abs(b[k][1])
+        gaps[k] = max(abs(u - v) / max(m, 1e-12)
+                      for u, v, m in zip(a[k], b[k], scale))
+    return gaps
+
+
+def _pytorch_cudnn_flags(allow_tf32=True):
+    """cuDNN's flags at PyTorch's defaults (TF32 on, nondeterministic
+    algorithms allowed, no benchmarking), or with TF32 off as
+    ``phase_device`` sets them; the caller's restored on exit."""
+    import torch
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=False,
+                                      allow_tf32=allow_tf32)
+
+
+@contextlib.contextmanager
+def _without_package_scope():
+    """The port's convolutions without its ``f32_convs()`` scope, under
+    whatever cuDNN flags the process holds: what the checks would see
+    without the repair."""
+    from repro_torch.models import cnn
+    saved = cnn.f32_convs
+    cnn.f32_convs = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        cnn.f32_convs = saved
+
+
+def _step_gradient(model_cfg, params, x, y, device):
+    """The gradient of ``local_train``'s first step (read in a hook on
+    each param leaf, inside the port's own scope) and its loss, on
+    ``device``."""
+    from repro_torch import prng
+    from repro_torch.fl.client import local_train
+    from repro_torch.models import cnn
+    from repro_torch.tree import ravel
+
+    grads = {}
+
+    def loss_fn(p, batch):
+        for n, t in p.items():
+            t.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach()))
+        return cnn.cnn_loss(p, model_cfg, batch)
+
+    _, loss = local_train({n: t.to(device) for n, t in params.items()},
+                          x.to(device), y.to(device),
+                          prng.PRNGKey(5, device), loss_fn=loss_fn, steps=1,
+                          lr=0.05, clip=1.0, momentum=0.9)
+    return ravel({n: grads[n] for n in params}).cpu(), float(loss)
+
+
+# the VGG-11 rounds of conv_parity_on_card: with the package's scope
+# (True) and without it under TF32 off, as phase_device runs the process
+# (False), in turns so that drift of the host falls on both; the first
+# round of each warms up, and one more of each runs under the profiler
+VGG_ROUND_ORDER = (True, False, False, True, True, False, False, True)
+
+
+@contextlib.contextmanager
+def _unscoped_tf32_off():
+    with _pytorch_cudnn_flags(allow_tf32=False), _without_package_scope():
+        yield
+
+
+def _vgg_round(trainer, state, x, y, scoped, profiled=False):
+    """One ``trainer.step`` from ``state``: the flat params, the loss, the
+    host-clock seconds, and (``profiled``) the device busy seconds."""
+    import torch
+    from repro_torch.tree import ravel
+    box = {}
+
+    def run():
+        box["out"] = trainer.step(state, x, y)
+
+    with contextlib.nullcontext() if scoped else _unscoped_tf32_off():
+        if profiled:
+            wall, rows = _profiled(run)
+            busy = sum(r[0] for r in rows) / 1e6
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall, busy = time.perf_counter() - t0, None
+    new, metrics = box["out"]
+    return ravel(new.params), metrics["train_loss"].clone(), wall, busy
+
+
+def _vgg_summary(rounds):
+    import torch
+    p0, l0 = rounds[0][0], rounds[0][1]
+    return {"bit_equal": all(torch.equal(p, p0) and torch.equal(l, l0)
+                             for p, l, _, _ in rounds[1:]),
+            "train_loss": float(l0),
+            "round_wall_s": [w for _, _, w, _ in rounds[1:-1]],
+            "profiled_round_wall_s": rounds[-1][2],
+            "profiled_round_device_busy_s": rounds[-1][3]}
+
+
+def phase_conv_parity():
+    """The port's convolutions on the card under PyTorch's default cuDNN
+    flags (TF32 on, nondeterministic algorithms allowed), so that what is
+    checked is the package's own scoping and not ``phase_device``'s
+    process switch:
+
+    - one ``local_train`` step's gradient at BENCH_CNN_CIFAR's and
+      VGG-11's widths, card against CPU, same params and batch; and the
+      same without the package's scope (TF32 convolutions), which must
+      fall outside the limit;
+    - two rounds of BENCH_CNN_CIFAR at the default PFELS config, card
+      against the port's CPU route, same key, as digests;
+    - one VGG-11 round at the main path's config, five times from the
+      same state and key: bit-equal params and losses; in turns with the
+      same round without the package's scope under ``phase_device``'s
+      flags (TF32 off, nondeterministic algorithms allowed): whether that
+      repeats, and what the deterministic algorithms cost (round wall
+      time, device busy time).
+    """
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import (BENCH_CNN_CIFAR, PAPER_VGG11_CIFAR10,
+                                     PFELSConfig)
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import Trainer
+    from repro_torch.models import cnn
+
+    c = torch.backends.cudnn
+    failures = []
+    line = {"phase": "conv_parity_on_card"}
+    with _pytorch_cudnn_flags():
+        line["cudnn_flags_around"] = {
+            "allow_tf32": c.allow_tf32, "deterministic": c.deterministic,
+            "benchmark": c.benchmark}
+        grads = {}
+        for model_cfg, size in ((BENCH_CNN_CIFAR, 16),
+                                (PAPER_VGG11_CIFAR10, 32)):
+            params = cnn.init_cnn(prng.PRNGKey(0), model_cfg)
+            x = _randn((50, 3, size, size), 41)
+            g = torch.Generator(device="cuda").manual_seed(42)
+            y = torch.randint(0, 10, (50,), generator=g, device="cuda")
+            g_cpu, l_cpu = _step_gradient(model_cfg, params, x, y, "cpu")
+            g_card, l_card = _step_gradient(model_cfg, params, x, y, "cuda")
+            with _without_package_scope():
+                g_tf32, _ = _step_gradient(model_cfg, params, x, y, "cuda")
+            scale = float(g_cpu.abs().max())
+            grads[model_cfg.name] = {
+                "d": g_cpu.numel(),
+                "gap_rel_to_max": float((g_card - g_cpu).abs().max())
+                / scale,
+                "loss_rel_gap": abs(l_card - l_cpu) / abs(l_cpu),
+                "unscoped_tf32_gap_rel_to_max":
+                    float((g_tf32 - g_cpu).abs().max()) / scale}
+        line["step_gradient"] = grads
+        for name, gp in grads.items():
+            if not gp["gap_rel_to_max"] <= CONV_GRAD_TOL:
+                failures.append(f"{name}: the step gradient on the card is "
+                                f"{gp['gap_rel_to_max']:.3g} of max|g| off "
+                                f"the CPU's")
+        if not (grads[PAPER_VGG11_CIFAR10.name]
+                ["unscoped_tf32_gap_rel_to_max"] > CONV_GRAD_TOL):
+            failures.append("without the package's scope the VGG-11 step "
+                            "gradient stays within the limit: the check "
+                            "cannot see TF32")
+
+        # two rounds of BENCH_CNN_CIFAR, PFELSConfig defaults; params and
+        # data made on the card and copied, so both routes start alike
+        key = prng.PRNGKey(0)
+        params = cnn.init_cnn(key, BENCH_CNN_CIFAR)
+        x, y, _, _ = make_federated_classification(
+            key, n_clients=1000, per_client=50, num_classes=10,
+            image_shape=(3, 16, 16))
+        cfg = PFELSConfig(rounds=2)
+        card = _round_digests(BENCH_CNN_CIFAR, params, x, y, cfg)
+        cpu = _round_digests(BENCH_CNN_CIFAR, params, x.cpu(), y.cpu(), cfg,
+                             device="cpu")
+        gaps = _digest_gaps(card, cpu)
+        line["bench_cnn_2_rounds"] = {"max_rel_gap": gaps,
+                                      "train_loss_card": card["train_loss"],
+                                      "train_loss_cpu": cpu["train_loss"]}
+        if not max(gaps.values()) <= CONV_DIGEST_TOL:
+            failures.append("BENCH_CNN_CIFAR: two rounds on the card "
+                            "disagree with the CPU route")
+        del x, y
+
+        # one VGG-11 round at the main path's config, repeated
+        model_cfg = PAPER_VGG11_CIFAR10
+        params = cnn.init_cnn(prng.PRNGKey(0), model_cfg)
+        d = sum(p.numel() for p in params.values())
+        x, y, _, _ = make_federated_classification(
+            prng.PRNGKey(0), n_clients=1000, per_client=50, num_classes=10,
+            image_shape=(3, 32, 32))
+        cfg = PFELSConfig(transmit_clip=0.25, use_fused_kernel=True,
+                          channel=scaled_channel(d))
+        trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, model_cfg, b),
+                          params)
+        state = trainer.init(prng.PRNGKey(1))
+        rounds = {True: [], False: []}
+        for scoped in VGG_ROUND_ORDER:
+            rounds[scoped].append(_vgg_round(trainer, state, x, y, scoped))
+        for scoped in (True, False):
+            rounds[scoped].append(_vgg_round(trainer, state, x, y, scoped,
+                                             profiled=True))
+        scoped = _vgg_summary(rounds[True])
+        line["vgg11_round"] = {"d": d, "repeats": len(rounds[True]),
+                               "order": VGG_ROUND_ORDER, "scoped": scoped,
+                               "unscoped_tf32_off":
+                                   _vgg_summary(rounds[False])}
+        del rounds
+        if d != MAIN_D:
+            failures.append(f"VGG-11 has d={d}, expected {MAIN_D}")
+        if not scoped["bit_equal"]:
+            failures.append("the VGG-11 round does not repeat bit for bit")
+        del x, y, trainer, state
+    torch.cuda.empty_cache()
+    line["cudnn_flags_after"] = {"allow_tf32": c.allow_tf32,
+                                 "deterministic": c.deterministic,
+                                 "benchmark": c.benchmark}
+    line["tolerance"] = {"step_gradient": f"{CONV_GRAD_TOL} of max|g|",
+                         "bench_cnn_2_rounds": f"{CONV_DIGEST_TOL} relative"
+                                               " (a sum against its sum of"
+                                               " magnitudes)"}
+    emit(line)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1463,6 +1801,7 @@ def main(argv=None) -> int:
     launches.update(phase_kernel_api())
     phase_baselines(args.profile)
     phase_parity()
+    phase_conv_parity()
     phase_serve_parity()
     launches.update(phase_serve(args.profile))
     phase_serve_parity_bf16()

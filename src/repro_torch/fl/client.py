@@ -12,6 +12,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.clipping import clip_by_global_norm
 from repro_torch.data.loader import sample_batch
+from repro_torch.models import cnn
 from repro_torch.tree import Params
 
 
@@ -22,14 +23,16 @@ def local_train(params: Params, x, y, key, *, loss_fn: Callable, steps: int,
 
     The step keys are ``split(key, steps)``. Assumption 1 (bounded
     gradient) is enforced by clipping each stochastic gradient to C1
-    before the SGD step [21]."""
+    before the SGD step [21]. The forward and the backward pass run
+    inside ``f32_convs()``: f32, deterministic cuDNN convolutions."""
     p = {n: t.detach() for n, t in params.items()}
     v = {n: torch.zeros_like(t, dtype=torch.float32) for n, t in p.items()}
     losses = []
     for k in prng.split(key, steps):
         batch = sample_batch(k, x, y, batch_size)
         leaves = {n: t.requires_grad_(True) for n, t in p.items()}
-        with torch.enable_grad():
+        # the backward convolutions read cuDNN's flags when they launch
+        with torch.enable_grad(), cnn.f32_convs():
             loss, _ = loss_fn(leaves, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         g, _ = clip_by_global_norm(dict(zip(leaves, grads)), clip)

@@ -1,6 +1,8 @@
-"""The route a kernel wrapper takes (the tensors' device), and the scalar
-operands it hands a kernel."""
+"""The route a kernel wrapper takes (the tensors' device), the stream it
+launches on, and the scalar operands it hands a kernel."""
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -28,3 +30,27 @@ def scalar_like(value, t: torch.Tensor) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device=t.device, dtype=t.dtype).reshape(1)
     return torch.full((1,), value, dtype=t.dtype, device=t.device)
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of a device, as a Python
+    int for ctypes (the call Triton's launchers make: it builds no Stream
+    object)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def host_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (f32 or bf16) on the host, as
+    ``scalar_like`` rounds a number: to f32 (nearest even), then for bf16
+    to nearest even on the upper 16 bits, NaN kept. Returned as a Python
+    float, exact in f32, for a kernel to take by value."""
+    f32 = struct.unpack("<f", struct.pack("<f", value))[0]
+    if dtype == torch.float32:
+        return f32
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no host rounding to {dtype}")
+    if f32 != f32:
+        return f32
+    bits = struct.unpack("<I", struct.pack("<f", f32))[0]
+    bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return struct.unpack("<f", struct.pack("<I", bits))[0]

@@ -7,17 +7,22 @@ The TPU kernel aliases theta from input to output; this wrapper updates
 device is the route: a CPU tensor runs the plain update
 (``ref.add_rows_``); a CUDA tensor launches the kernel or raises. The
 wrapper checks dtypes (theta and y f32 or bf16 alike, indices int32),
-shapes and contiguity, casts 1/(r beta) to y's dtype on the device,
-launches on the current stream, raises if the launch reports an error,
-and adds one to ``LAUNCHES["aircomp_combine"]``.
+shapes and contiguity. 1/(r beta) reaches the kernel cast to y's dtype,
+as the TPU kernel casts it: a number is rounded on the host
+(``host_scalar``, as ``scalar_like`` rounds it) and passed by value; a
+tensor is passed by pointer, converted first only if its dtype or device
+differs. One launch on the current stream (the device switched only when
+theta's is not the current one); it raises if the launch reports an
+error, and adds one to ``LAUNCHES["aircomp_combine"]``.
 
 Duplicate rows accumulate on both routes. The kernel adds each element
-with one atomic add: with unique rows (what ``row_indices_from_coords``
-draws) its result is bit-equal to the plain version and the same from
-run to run; with duplicates the adds to one element round in an order
-that varies, so it matches the plain version within about one rounding
-of the element per extra add (``csrc/aircomp_combine.cu``). Indices must
-lie in [0, R): the kernel drops a row outside, the plain version raises.
+with an atomic reduction: with unique rows (what
+``row_indices_from_coords`` draws) its result is bit-equal to the plain
+version and the same from run to run; with duplicates the adds to one
+element round in an order that varies, so it matches the plain version
+within about one rounding of the element per extra add
+(``csrc/aircomp_combine.cu``). Indices must lie in [0, R): the kernel
+drops a row outside, the plain version raises.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import on_cpu, scalar_like
+from repro_torch.kernels._route import (current_stream, host_scalar,
+                                       on_cpu)
 from repro_torch.kernels.aircomp_combine import ref
 
 SOURCE = "aircomp_combine"
@@ -49,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         lib.aircomp_combine_launch.argtypes = [ctypes.c_int, _P, _P, _P, _P,
-                                               _LL, _LL, _P]
+                                               ctypes.c_float, _LL, _LL, _P]
         lib.aircomp_combine_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -89,14 +95,30 @@ def aircomp_combine(theta_rows: torch.Tensor, y_rows: torch.Tensor,
     if rows < 1 or k_rows < 1:
         raise ValueError(f"empty operand: theta_rows "
                          f"{tuple(theta_rows.shape)}, k_rows {k_rows}")
-    inv = scalar_like(inv_rbeta, y_rows)
-    with torch.cuda.device(theta_rows.device):
-        stream = torch.cuda.current_stream(theta_rows.device).cuda_stream
-        err = _lib().aircomp_combine_launch(
-            int(theta_rows.dtype == torch.bfloat16), theta_rows.data_ptr(),
-            y_rows.data_ptr(), idx_rows.data_ptr(), inv.data_ptr(), rows,
-            k_rows, stream)
+    if isinstance(inv_rbeta, torch.Tensor):
+        if inv_rbeta.numel() != 1:
+            raise ValueError(f"inv_rbeta must hold one value, got "
+                             f"{tuple(inv_rbeta.shape)}")
+        inv = inv_rbeta
+        if inv.dtype != y_rows.dtype or inv.device != y_rows.device:
+            inv = inv.to(device=y_rows.device, dtype=y_rows.dtype)
+        inv_ptr, inv_val = inv.data_ptr(), 0.0
+    else:
+        inv_ptr, inv_val = None, host_scalar(inv_rbeta, y_rows.dtype)
+    if theta_rows.get_device() == torch.cuda.current_device():
+        err = _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val)
+    else:
+        with torch.cuda.device(theta_rows.device):
+            err = _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val)
     if err != 0:
         raise RuntimeError(f"aircomp_combine: CUDA error {err} at launch")
     LAUNCHES["aircomp_combine"] += 1
     return theta_rows
+
+
+def _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val) -> int:
+    return _lib().aircomp_combine_launch(
+        int(theta_rows.dtype == torch.bfloat16), theta_rows.data_ptr(),
+        y_rows.data_ptr(), idx_rows.data_ptr(), inv_ptr, inv_val,
+        theta_rows.shape[0], idx_rows.shape[0],
+        current_stream(theta_rows.get_device()))

@@ -6,6 +6,13 @@ weights (in, out). The reference's SAME 3x3 stride-1 conv is
 ``padding=1`` and its 2x2 VALID max pool is ``max_pool2d(2)``. The
 ``resnet`` family waits: the reference's SAME padding at stride 2 pads
 (0, 1), which ``padding=1`` does not.
+
+The reference computes in f32 and gives the same result from run to run.
+On the card cuDNN would round convolution inputs to TF32 (PyTorch's
+default) and may pick backward algorithms that add with atomics, so every
+convolution of the port runs inside ``f32_convs()``. The dense layers'
+``@`` needs no such scope: ``torch.backends.cuda.matmul.allow_tf32`` is
+False by PyTorch's default, and the port leaves that switch to the caller.
 """
 from __future__ import annotations
 
@@ -80,6 +87,15 @@ def init_cnn(key, cfg: CNNConfig, device: Union[str, torch.device] = "cuda"
     raise _resnet_not_ported()
 
 
+def f32_convs():
+    """cuDNN's flags for the port's convolutions: f32 (no TF32) and
+    deterministic algorithms, restored to the caller's on exit. cuDNN
+    reads them when a convolution launches, so a backward pass must run
+    inside the context as well as the forward."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
 def apply_cnn(params: Params, cfg: CNNConfig, images: torch.Tensor):
     """images: (B, C, H, W) -> logits (B, num_classes)."""
     x = images
@@ -91,14 +107,16 @@ def apply_cnn(params: Params, cfg: CNNConfig, images: torch.Tensor):
     if cfg.arch == "vgg":
         ci = 0
         size = cfg.image_size
-        for item in VGG11_PLAN:
-            if item == "M":
-                if size > 1:
-                    x = F.max_pool2d(x, 2)
-                    size //= 2
-            else:
-                x = torch.relu(F.conv2d(x, params[f"convs.{ci}"], padding=1))
-                ci += 1
+        with f32_convs():
+            for item in VGG11_PLAN:
+                if item == "M":
+                    if size > 1:
+                        x = F.max_pool2d(x, 2)
+                        size //= 2
+                else:
+                    x = torch.relu(F.conv2d(x, params[f"convs.{ci}"],
+                                            padding=1))
+                    ci += 1
         x = x.reshape(x.shape[0], -1)
         return x @ params["out.w"] + params["out.b"]
     raise _resnet_not_ported()

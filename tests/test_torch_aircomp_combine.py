@@ -22,7 +22,9 @@ in f32, 2^-8 in bf16, times the largest multiplicity.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+# the imports below need torch, which is skipped where absent
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.kernels.aircomp_combine.ops import combine as jcombine
 from repro_torch.kernels.aircomp_combine import kernel as tkernel
@@ -137,3 +139,28 @@ def test_refusals():
     with pytest.raises(ValueError, match="k_rows"):
         tkernel.aircomp_combine(torch.zeros((4, 128)), torch.zeros((2, 128)),
                                 torch.zeros(1, dtype=torch.int32), 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_host_rounding_of_inv_equals_scalar_like(dtype):
+    """The CUDA route takes 1/(r beta) by value, rounded to y's dtype on
+    the host; that rounding must be ``scalar_like``'s (the plain route's):
+    over 400 numbers from a seed (normals over 70 decades, f32 values from
+    random bit patterns, halfway cases of bf16) every value and sign
+    agree."""
+    from repro_torch.kernels._route import host_scalar, scalar_like
+    tdtype = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    values = list(rng.standard_normal(150)
+                  * 10.0 ** rng.integers(-40, 30, 150))
+    bits = rng.integers(0, 2 ** 32, 250, dtype=np.uint64).astype(np.uint32)
+    f32 = bits.view(np.float32)
+    values += [float(v) for v in f32[np.isfinite(f32)]]
+    # halfway between two bf16 values, below and above
+    values += [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8),
+               1.0 / (32 * 0.05), 0.0, -0.0, float("inf")]
+    assert len(values) >= 350
+    for v in values:
+        got = host_scalar(v, tdtype)
+        want = float(scalar_like(v, torch.empty(1, dtype=tdtype)))
+        assert got == want and np.signbit(got) == np.signbit(want), v

@@ -4,7 +4,9 @@ problem's data with the params and key carried across."""
 import jax
 import numpy as np
 import pytest
-import torch
+# the imports below need torch, which is skipped where absent
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 from jax.flatten_util import ravel_pytree
 
 from repro.configs.paper_models import BENCH_CNN_CIFAR, BENCH_MLP

@@ -11,7 +11,9 @@ has only the port's dependencies:
 import dataclasses
 
 import pytest
-import torch
+# the imports below need torch, which is skipped where absent
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch import prng
 from repro_torch.configs import reduced_config
@@ -280,8 +282,8 @@ def _to(tree, device):
 # ----------------------------- clip_norm, randk_gather, aircomp_combine
 
 ROW_DTYPES = [torch.float32, torch.bfloat16]
-# the row counts: one row, ragged against the 8192-element sum chunk, and
-# more rows than one scale-pass wave
+# the row counts: one row, fewer rows than the clip's threads hold, and
+# more rows than its resident grid holds in one sweep
 ROWS = [1, 37, 513, 20_001]
 
 
@@ -436,3 +438,110 @@ def test_row_kernels_refuse_what_they_do_not_take(cuda):
         comb_kernel.aircomp_combine(x, x[:2].bfloat16(), idx, 1.0)
     with pytest.raises(ValueError, match="several devices"):
         comb_kernel.aircomp_combine(x, x[:2], idx.cpu(), 1.0)
+
+
+def _misaligned(t):
+    """A copy of ``t`` that starts one element past a 16-byte boundary."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def _device_kernels(fn):
+    """Kernels, copies and fills the card runs for one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def test_clip_norm_above_l2_size(cuda):
+    """2^19 rows of f32 (268 MB, above the 50 MB L2): the second read
+    comes from HBM; the result is as right, and as repeatable."""
+    x = _rows(2 ** 19, torch.float32, cuda, seed=7, scale=0.01)
+    o1, n1 = clip_kernel.clip_norm(x, 0.25)
+    o2, n2 = clip_kernel.clip_norm(x, 0.25)
+    o_p, n_p = clip_ref.clip_norm_ref(x, 0.25)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(n1, n_p, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(o1, o_p, rtol=1e-6, atol=0.0)
+    assert torch.equal(o1, o2) and torch.equal(n1, n2)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 513])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_clip_norm_takes_a_misaligned_view(cuda, rows, dtype):
+    """A view off 16-byte alignment takes the scalar path, with the same
+    tolerances as the vector path and bit-identical reruns."""
+    x = _misaligned(_rows(rows, dtype, cuda, seed=rows + 3))
+    o1, n1 = clip_kernel.clip_norm(x, 0.5)
+    o2, n2 = clip_kernel.clip_norm(x, 0.5)
+    o_p, n_p = clip_ref.clip_norm_ref(x, 0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(n1, n_p, rtol=1e-6, atol=0.0)
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(o1.float(), o_p.float(), rtol=rtol, atol=0.0)
+    assert torch.equal(o1, o2) and torch.equal(n1, n2)
+
+
+@pytest.mark.parametrize("which", ["theta", "y"])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_aircomp_combine_takes_misaligned_operands(cuda, which, dtype):
+    """theta or y off 16-byte alignment: scalar atomics, unique rows still
+    bit-equal to the plain version and repeatable."""
+    rows, k_rows = 513, 200
+    theta = _rows(rows, dtype, cuda, seed=8)
+    y = _rows(k_rows, dtype, cuda, seed=9, scale=0.01)
+    idx = prng.permutation(prng.PRNGKey(9, cuda), rows)[:k_rows]
+    idx = idx.to(torch.int32)
+    want = comb_ref.aircomp_combine_ref(theta, y, idx, 0.625)
+    if which == "y":
+        y = _misaligned(y)
+    outs = []
+    for _ in range(2):
+        t = _misaligned(theta) if which == "theta" else theta.clone()
+        outs.append(comb_kernel.aircomp_combine(t, y, idx, 0.625))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], want) and torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("inv", ["number", "bf16 tensor", "f32 tensor"])
+def test_aircomp_combine_bf16_vector_reductions_with_duplicates(cuda, inv):
+    """bf16 rows of 8 pairs a lane, each row hit about 500 times: every
+    add lands, within one bf16 rounding per extra add; 1/(r beta) as a
+    number (rounded on the host), as a bf16 tensor (by pointer) or as an
+    f32 tensor (cast first)."""
+    rows, k_rows = 8, 4_000
+    theta = _rows(rows, torch.bfloat16, cuda, seed=10)
+    y = _rows(k_rows, torch.bfloat16, cuda, seed=11, scale=0.01)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    idx = torch.randint(0, rows, (k_rows,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = 1.0 / (32 * 0.05)
+    arg = {"number": w,
+           "bf16 tensor": torch.tensor(w, device=cuda).bfloat16(),
+           "f32 tensor": torch.tensor(w, device=cuda)}[inv]
+    mult = int(torch.bincount(idx.long(), minlength=rows).max())
+    got = comb_kernel.aircomp_combine(theta.clone(), y, idx, arg)
+    want = comb_ref.aircomp_combine_ref(theta, y, idx, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
+                               atol=mult * 2.0 ** -8
+                               * float(want.float().abs().max()))
+
+
+def test_row_kernels_run_one_device_kernel_a_call(cuda):
+    x = _rows(20_001, torch.float32, cuda, seed=13)
+    idx = prng.permutation(prng.PRNGKey(13, cuda), 20_001)[:6_000]
+    idx = idx.to(torch.int32)
+    y = _rows(6_000, torch.float32, cuda, seed=14)
+    clip_kernel.clip_norm(x, 0.5)
+    comb_kernel.aircomp_combine(x, y, idx, 0.5)
+    assert _device_kernels(lambda: clip_kernel.clip_norm(x, 0.5)) == 1
+    assert _device_kernels(
+        lambda: comb_kernel.aircomp_combine(x, y, idx, 0.5)) == 1

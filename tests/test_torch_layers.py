@@ -5,7 +5,9 @@ seed with numpy."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+# the imports below need torch, which is skipped where absent
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.models import layers as jl
 from repro_torch.models import layers as tl

@@ -11,7 +11,9 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
+# the imports below need torch, which is skipped where absent
+# ruff: noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import reduced_config as j_reduced
 from repro.models import transformer as JT
