@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                # every phase, as the port's check
     python3 chip_smoke.py --profile      # and profiled extra runs
+    python3 chip_smoke.py --time-ssd     # only ssd_scan's and a warm
+                                         # zamba2-2.7b prefill's times
 
 Phases, each printing one JSON line:
 
@@ -14,8 +16,15 @@ Phases, each printing one JSON line:
    on the card, at its main-path shapes and at ragged small shapes; run
    twice for bit-identity; timed with CUDA events beside its bound, the
    plain version and a one-call PyTorch yardstick where one exists. The
-   PFELS pair at r = 32, d = 9,222,858; ``ssd_scan`` at zamba2-2.7b's
-   (B 8, S 2048, H 80, P 64, N 64) and mamba2-130m's (H 24, N 128) prefill;
+   PFELS pair at r = 32, d = 9,222,858; ``ssd_scan`` at small shapes and
+   ragged chunks (1 to 100 rows) in f32 (CUDA cores) and bf16 (tensor
+   cores; also on misaligned views, which must equal their aligned
+   copies, and at P = N = 128), the bf16 route held to the bound derived
+   from its split operands against the plain version and against
+   ``ref.split_bf16_route``, the emulation of its rounding; then timed
+   (warm and cold L2) at zamba2-2.7b's (B 8, S 2048, H 80, P 64, N 64)
+   and mamba2-130m's (H 24, N 128) prefill, with its ``ptxas`` registers
+   and spills and its shared memory a block;
    ``flash_attention_fwd`` at zamba2-2.7b's (B 8, S 2048, H = Hkv = 32,
    Dh 80) in bf16 (tensor cores) and f32 (CUDA cores), beside
    ``scaled_dot_product_attention``, with TFLOP/s, the share of the bound
@@ -62,8 +71,16 @@ Phases, each printing one JSON line:
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
    zamba2); prefill s, decode tok/s, peak memory, finite logits and
-   in-vocabulary tokens; then one more zamba2-2.7b prefill under the
-   profiler: the flash kernel's device ms and share of the prefill.
+   in-vocabulary tokens; then three warm zamba2-2.7b prefills and one
+   more under the profiler: its device time, and each LLM kernel's device
+   ms and share of it.
+
+``--time-ssd`` runs the device phase and then only times ``ssd_scan`` at
+the two serving prefills (bf16, warm and cold L2) and three warm
+zamba2-2.7b prefills plus one profiled, and prints no result line. It
+uses only what every tree of the port has: copy this script into a parent
+commit's checkout (``git archive``) and run it there and here in turns,
+in one call, to compare the two.
 
 Then the kernel summary line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -315,6 +332,14 @@ SSD_ZAMBA2 = (8, 2048, 80, 64, 64, 128)
 SSD_MAMBA2 = (8, 2048, 24, 64, 128, 128)
 SSD_SMALL = ((1, 64, 2, 32, 32, 32), (2, 96, 3, 64, 64, 32),
              (2, 40, 2, 32, 32, 8), (1, 256, 2, 64, 128, 128))
+# chunks of 1, 4, 8, 40 and 100 rows (prefill_chunk gives a prompt of S
+# <= 128 the chunk S, and halves 128 until it divides S), N = 128
+SSD_RAGGED = ((1, 8, 2, 32, 32, 1), (2, 100, 3, 64, 64, 4),
+              (2, 48, 2, 64, 128, 8), (2, 120, 2, 64, 32, 40),
+              (1, 100, 2, 32, 64, 100))
+# P = N = 128 at chunk 128: the bf16 route's 1-stage ring (the f32
+# route's shared memory refuses it)
+SSD_WIDE = (1, 256, 2, 128, 128, 128)
 # flash attention: (B, Sq, Skv, H, Hkv, Dh, window) at zamba2-2.7b's
 # prefill, and ragged small shapes (GQA, Sq < Skv, a window)
 FLASH_ZAMBA2 = (8, 2048, 2048, 32, 32, 80, None)
@@ -329,6 +354,20 @@ FLASH_MID = (1, 2048, 2048, 4, 2, 80, None)
 # ssd_scan sums up to 128 terms per chunk and carries a recurrence over
 # 16 chunks in another order than the plain einsums (measured 7e-6)
 SSD_TOL = 5e-5
+# ssd_scan's bf16 route (tensor cores) splits each f32 operand (G, H, W)
+# into bf16 halves, off the operand by at most 2^-18 of it, so y moves by
+# at most 2^-18 y_abs and the state by 2^-18 state_abs (the abs-value
+# sums of ref.split_bf16_route: |C| |B|^T o L o dt against |x|, twice
+# exp(cum) |C| Habs^T); held to twice that plus the f32 route's SSD_TOL
+# of max|plain| for the sums' order (the cumsum's above all). Against the
+# emulation of its rounding (the kernel's cumsum order, the same halves of
+# nearly the same operands), element by element with no relative-to-max
+# term: where the two sides' f32 operands differ in their last bits their
+# halves round apart, so each side's residual counts (2 x 2^-18), and the
+# orders of their f32 sums add sqrt(256) 2^-24 of the same sums each:
+# 5 x 2^-19 y_abs.
+SSD_SPLIT_PLAIN = 2.0 ** -17
+SSD_SPLIT_EMULATED = 5 * 2.0 ** -19
 # flash attention, |kernel - plain (f32)| <= rel |plain| + abs_of * max|x|:
 # f32 (CUDA cores) sums in another order: 1e-5 |plain| + 1e-5 max|plain|.
 # bf16 (tensor cores) rounds P to bf16 before P V, as the reference's
@@ -345,7 +384,12 @@ FLASH_TOL = {"float32": (1e-5, 1e-5, "plain"),
              "bfloat16": (2 ** -7, 2 ** -8, "v")}
 
 
-def _ssd_inputs(b, s, h, p, n, dtype, seed):
+def _ssd_inputs(b, s, h, p, n, dtype, seed, misaligned=False):
+    """x, dt, a, B, C on the card. With ``misaligned``, x, B and C are
+    views into one buffer laid out as the model's projection (x, then B,
+    then C along a row), with a row of odd length and a start one
+    element past a 16-byte boundary: the bf16 route loads them element
+    by element."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
@@ -354,6 +398,16 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed):
     a = -torch.exp(0.5 * torch.randn((h,), generator=g, device="cuda"))
     bm = (torch.randn((b, s, n), generator=g, device="cuda") / 4).to(dtype)
     cm = (torch.randn((b, s, n), generator=g, device="cuda") / 4).to(dtype)
+    if misaligned:
+        row = h * p + 2 * n + 1
+        buf = torch.zeros((b * s * row + 1,), dtype=dtype, device="cuda")
+        xbc = buf[1:].view(b, s, row)
+        xbc[..., :h * p] = x.reshape(b, s, h * p)
+        xbc[..., h * p:h * p + n] = bm
+        xbc[..., h * p + n:h * p + 2 * n] = cm
+        x = xbc[..., :h * p].view(b, s, h, p)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:h * p + 2 * n]
+        assert x.data_ptr() % 16 != 0
     return x, dt, a, bm, cm
 
 
@@ -370,36 +424,81 @@ def ssd_work(b, s, h, p, n, chunk, elem):
     return n_bytes, flops
 
 
-def check_ssd_at(shape, dtype_name, seed, timed):
+def _ssd_ratio(err, limit):
+    return float((err / limit).max())
+
+
+def check_ssd_at(shape, dtype_name, seed, timed, misaligned=False):
     import torch
     from repro_torch.kernels.ssd_scan import kernel, ref
     b, s, h, p, n, chunk = shape
     dtype = getattr(torch, dtype_name)
-    args = _ssd_inputs(b, s, h, p, n, dtype, seed)
+    args = _ssd_inputs(b, s, h, p, n, dtype, seed, misaligned)
     y1, s1 = kernel.ssd_scan(*args, chunk=chunk)
     y2, s2 = kernel.ssd_scan(*args, chunk=chunk)
     y_p, s_p = ref.ssd_chunked(*args, chunk)
     torch.cuda.synchronize()
-    y_err = float((y1 - y_p).abs().max())
-    s_err = float((s1 - s_p).abs().max())
-    y_rel = y_err / max(float(y_p.abs().max()), 1e-30)
-    s_rel = s_err / max(float(s_p.abs().max()), 1e-30)
+    y_err, s_err = (y1 - y_p).abs(), (s1 - s_p).abs()
+    y_max, s_max = float(y_p.abs().max()), float(s_p.abs().max())
     bit = bool(torch.equal(y1, y2) and torch.equal(s1, s2))
     line = {"phase": "kernels", "kernel": "ssd_scan",
             "shape": {"B": b, "S": s, "H": h, "P": p, "N": n,
                       "chunk": chunk}, "dtype": dtype_name,
-            "y_max_abs_err": y_err, "y_rel_to_max": y_rel,
-            "state_max_abs_err": s_err, "state_rel_to_max": s_rel,
-            "bit_identical": bit,
-            "tolerance": f"y and state: {SSD_TOL} of max|plain|"}
+            "misaligned_views": misaligned,
+            "y_max_abs_err": float(y_err.max()),
+            "y_rel_to_max": float(y_err.max()) / max(y_max, 1e-30),
+            "state_max_abs_err": float(s_err.max()),
+            "state_rel_to_max": float(s_err.max()) / max(s_max, 1e-30),
+            "bit_identical": bit}
+    failures = []
+    if dtype == torch.bfloat16:
+        y_e, s_e, y_abs, s_abs = ref.split_bf16_route(*args, chunk)
+        y_lim = SSD_SPLIT_PLAIN * y_abs + SSD_TOL * y_max
+        s_lim = SSD_SPLIT_PLAIN * s_abs + SSD_TOL * s_max
+        emu = (_ssd_ratio((y1 - y_e).abs(), SSD_SPLIT_EMULATED * y_abs),
+               _ssd_ratio((s1 - s_e).abs(), SSD_SPLIT_EMULATED * s_abs))
+        plain = (_ssd_ratio(y_err, y_lim), _ssd_ratio(s_err, s_lim))
+        line.update({
+            "route": "tensor cores (mma.sync, split operands; cp.async)",
+            "y_err_over_limit": plain[0], "state_err_over_limit": plain[1],
+            "y_emulated_err_over_limit": emu[0],
+            "state_emulated_err_over_limit": emu[1],
+            "tolerance": f"|kernel - plain| <= {SSD_SPLIT_PLAIN} abs + "
+                         f"{SSD_TOL} max|plain|; |kernel - "
+                         f"ref.split_bf16_route| <= {SSD_SPLIT_EMULATED} "
+                         f"abs"})
+        if misaligned:
+            # the same arithmetic from contiguous copies (16-byte loads)
+            y_c, s_c = kernel.ssd_scan(*(t.contiguous() for t in args),
+                                       chunk=chunk)
+            line["equal_to_aligned_copies"] = bool(
+                torch.equal(y1, y_c) and torch.equal(s1, s_c))
+            if not line["equal_to_aligned_copies"]:
+                failures.append(f"ssd_scan {shape}: misaligned views and "
+                                f"their aligned copies differ")
+            del y_c, s_c
+        del y_e, s_e, y_abs, s_abs, y_lim, s_lim
+        if not max(plain) <= 1.0:
+            failures.append(f"ssd_scan {shape} disagrees with its plain "
+                            f"version")
+        if not max(emu) <= 1.0:
+            failures.append(f"ssd_scan {shape} departs from the emulated "
+                            f"rounding of its route")
+    else:
+        line.update({"route": "CUDA cores",
+                     "tolerance": f"y and state: {SSD_TOL} of max|plain|"})
+        if not (line["y_rel_to_max"] <= SSD_TOL
+                and line["state_rel_to_max"] <= SSD_TOL):
+            failures.append(f"ssd_scan {shape} disagrees with its plain "
+                            f"version")
     summary = None
     if timed:
         n_bytes, flops = ssd_work(b, s, h, p, n, chunk, dtype.itemsize)
         peak = (PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16
                 else PEAK_F32_FLOP_PER_S)
         bound, by = bound_ms(n_bytes, flops, peak)
-        times = {"kernel": time_ms(lambda: kernel.ssd_scan(*args,
-                                                           chunk=chunk)),
+        run = lambda: kernel.ssd_scan(*args, chunk=chunk)
+        times = {"kernel": time_ms(run), "kernel_cold": cold_ms(run),
                  "plain": time_ms(lambda: ref.ssd_chunked(*args, chunk),
                                   reps=5)}
         line.update({
@@ -409,20 +508,38 @@ def check_ssd_at(shape, dtype_name, seed, timed):
                          "f32_cuda_cores": flops / PEAK_F32_FLOP_PER_S * 1e3,
                          "bf16_tensor_cores":
                              flops / PEAK_BF16_FLOP_PER_S * 1e3},
+            "share_of_bound": bound / times["kernel"],
+            "shared_memory_per_block": kernel.shared_memory(chunk, p, n,
+                                                            dtype),
             "library": "none: no one PyTorch call computes the SSD scan"})
-        summary = {"max_abs_err": y_err, "ms": times["kernel"],
+        if dtype == torch.bfloat16:
+            line["ptxas"] = ssd_ptxas().get((p, n))
+        summary = {"max_abs_err": float(y_err.max()), "ms": times["kernel"],
                    "plain_ms": times["plain"], "bound_ms": bound,
                    "bound_by": by, "library_ms": None}
     emit(line)
-    del args, y1, y2, y_p, s1, s2, s_p
+    del args, y1, y2, y_p, s1, s2, s_p, y_err, s_err
     torch.cuda.empty_cache()
-    failures = []
-    if not (y_rel <= SSD_TOL and s_rel <= SSD_TOL):
-        failures.append(f"ssd_scan {shape} disagrees with its plain version")
     if not bit:
         failures.append(f"ssd_scan {shape} is not bit-identical run to run")
     if failures:
         raise AssertionError("; ".join(failures))
+    return summary
+
+
+def check_ssd_kernels():
+    """The scan at the small and ragged shapes in both routes (bf16 also
+    on misaligned views and at P = N = 128, chunk 128), then timed at the
+    two serving prefills in bf16."""
+    for i, shape in enumerate(SSD_SMALL + SSD_RAGGED):
+        for dtype in ("float32", "bfloat16"):
+            check_ssd_at(shape, dtype, seed=i, timed=False)
+    for i, shape in enumerate((SSD_SMALL[1], SSD_RAGGED[2])):
+        check_ssd_at(shape, "bfloat16", seed=20 + i, timed=False,
+                     misaligned=True)
+    check_ssd_at(SSD_WIDE, "bfloat16", seed=22, timed=False)
+    summary = check_ssd_at(SSD_ZAMBA2, "bfloat16", seed=11, timed=True)
+    check_ssd_at(SSD_MAMBA2, "bfloat16", seed=12, timed=True)
     return summary
 
 
@@ -553,30 +670,43 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     return summary
 
 
-def flash_ptxas():
-    """Registers and spills of the tensor-core kernel at each Dh, from
-    this process's build log of ``flash_attn.cu`` (empty if the library
-    was built earlier)."""
+def _ptxas(source, entry):
+    """Registers and spills of each instantiation of a kernel, from this
+    process's build log of ``source`` (empty if the library was built
+    earlier): ``entry`` is a regex on the mangled name whose groups are
+    the template's integer arguments, the key."""
     import re
     from repro_torch.kernels import _build
-    out, dh = {}, None
-    for ln in _build.BUILD_LOGS.get("flash_attn", "").splitlines():
-        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", ln)
+    out, key = {}, None
+    for ln in _build.BUILD_LOGS.get(source, "").splitlines():
+        m = re.search(entry, ln)
         if m:
-            dh = int(m.group(1))
-            out.setdefault(dh, {})
+            key = tuple(int(v) for v in m.groups())
+            key = key[0] if len(key) == 1 else key
+            out.setdefault(key, {})
             continue
-        if dh is None:
+        if key is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
-            out[dh]["spill_stores"] = int(m.group(1))
-            out[dh]["spill_loads"] = int(m.group(2))
+            out[key]["spill_stores"] = int(m.group(1))
+            out[key]["spill_loads"] = int(m.group(2))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            out[dh]["registers_at_entry"] = int(m.group(1))
-            dh = None
+            out[key]["registers_at_entry"] = int(m.group(1))
+            key = None
     return out
+
+
+def flash_ptxas():
+    """The flash tensor-core kernel's registers and spills at each Dh."""
+    return _ptxas("flash_attn", r"flash_fwd_tc_kernelILi(\d+)E")
+
+
+def ssd_ptxas():
+    """The ssd_scan tensor-core kernel's registers and spills at each
+    (P, N)."""
+    return _ptxas("ssd_scan", r"ssd_scan_tc_kernelILi(\d+)ELi(\d+)E")
 
 
 # clip_norm, randk_gather, aircomp_combine: the paper's VGG-11 update
@@ -871,12 +1001,7 @@ def phase_kernels():
     # the full support of WFL-P and WFL-PDP (k = d): the same bytes
     check_kernels_at(MAIN_R, MAIN_D, 1, seed=8, txm_zero=False, timed=True,
                      density=1.0)
-    for i, shape in enumerate(SSD_SMALL):
-        for dtype in ("float32", "bfloat16"):
-            check_ssd_at(shape, dtype, seed=i, timed=False)
-    summary["ssd_scan"] = check_ssd_at(SSD_ZAMBA2, "bfloat16", seed=11,
-                                       timed=True)
-    check_ssd_at(SSD_MAMBA2, "bfloat16", seed=12, timed=True)
+    summary["ssd_scan"] = check_ssd_kernels()
     for i, shape in enumerate(FLASH_SMALL):
         for dtype in ("float32", "bfloat16"):
             check_flash_at(shape, dtype, seed=i, timed=False,
@@ -1703,6 +1828,22 @@ SERVE_RUNS = (("zamba2-2.7b", {"ssd_scan": 45, "flash_attention_fwd": 9}),
               ("mamba2-130m", {"ssd_scan": 24, "flash_attention_fwd": 0}))
 
 
+def prefill_split(pre):
+    """The profiled prefill's wall and device time, and the device time
+    and calls of each LLM kernel with its share."""
+    line = {"prefill_wall_s": pre["wall_s"],
+            "prefill_device_busy_s": pre["device_busy_s"]}
+    for name, tag in (("flash_attention_fwd", "flash_fwd"),
+                      ("ssd_scan", "ssd_scan")):
+        rows = [(t, c) for t, c, k in pre["all"] if tag in k]
+        ms = sum(t for t, _ in rows)
+        line.update({f"{name}_device_ms": ms,
+                     f"{name}_calls": sum(c for _, c in rows),
+                     f"{name}_share_of_prefill_device_time":
+                         ms / 1e3 / pre["device_busy_s"]})
+    return line
+
+
 def phase_serve(profile: bool):
     """The serving main path through ``serve``, the entry point a user
     calls, at full width; the launch counters are zeroed just before each
@@ -1760,21 +1901,40 @@ def phase_serve(profile: bool):
     # prefill's device time
     pre, warm = profile_serve("zamba2-2.7b", batch, prompt_len,
                               steps=8 if profile else 0)
-    flash = [(t, c) for t, c, k in pre["all"] if "flash_fwd" in k]
-    flash_ms = sum(t for t, _ in flash)
     emit({"phase": "serve", "arch": "zamba2-2.7b",
           "what": "three warm prefills, then one profiled (batch 8, "
                   "prompt 2048)",
-          "prefill_warm_s": warm,
-          "prefill_wall_s": pre["wall_s"],
-          "prefill_device_busy_s": pre["device_busy_s"],
-          "flash_attention_fwd_device_ms": flash_ms,
-          "flash_attention_fwd_calls": sum(c for _, c in flash),
-          "flash_share_of_prefill_device_time":
-              flash_ms / 1e3 / pre["device_busy_s"]})
+          "prefill_warm_s": warm, **prefill_split(pre)})
     if failures:
         raise AssertionError("; ".join(failures))
     return launches_of["zamba2-2.7b"]
+
+
+def phase_ssd_timing():
+    """``--time-ssd``: the scan alone at the two serving prefills (bf16,
+    warm and cold L2), then three warm zamba2-2.7b prefills and one
+    profiled. It uses only what every tree of the port has, so a parent
+    commit is measured by copying this script into its checkout and
+    running it there and here in turns, in one call."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel
+    t0 = time.perf_counter()
+    _build.build(["ssd_scan", "flash_attn"])
+    line = {"phase": "ssd_timing", "tree": ROOT,
+            "build_s": time.perf_counter() - t0}
+    for i, (name, shape) in enumerate((("zamba2", SSD_ZAMBA2),
+                                       ("mamba2", SSD_MAMBA2))):
+        b, s, h, p, n, chunk = shape
+        args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, seed=11 + i)
+        run = lambda: kernel.ssd_scan(*args, chunk=chunk)
+        line[name] = {"shape": shape, "warm_ms": time_ms(run),
+                      "cold_ms": cold_ms(run)}
+        del args
+        torch.cuda.empty_cache()
+    pre, warm = profile_serve("zamba2-2.7b", 8, 2048, steps=0)
+    line["zamba2_prefill"] = {"warm_s": warm, **prefill_split(pre)}
+    emit(line)
 
 
 def main(argv=None) -> int:
@@ -1785,6 +1945,10 @@ def main(argv=None) -> int:
                          "and 8 zamba2-2.7b decode steps after the serve "
                          "phase's profiled prefill (device busy time, time "
                          "by kernel)")
+    ap.add_argument("--time-ssd", action="store_true",
+                    help="only time ssd_scan at the two serving prefills "
+                         "and a warm zamba2-2.7b prefill (no checks, no "
+                         "result line): the comparison with a parent tree")
     args = ap.parse_args(argv)
 
     import torch
@@ -1795,6 +1959,10 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi = phase_device()
+    if args.time_ssd:
+        phase_ssd_timing()
+        print(smi, flush=True)
+        return 0
     phase_build()
     summary = phase_kernels()
     launches = phase_main_path(args.profile)

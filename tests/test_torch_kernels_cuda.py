@@ -119,13 +119,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # ------------------------------------------------ ssd_scan and flash_attn
 
 # (b, s, h, p, n, chunk): N and P in {32, 64, 128}, one chunk, several,
-# chunks shorter than a pass of 32 rows
+# chunks shorter than a pass of 32 rows; ragged chunks of 1, 4, 8, 40 and
+# 100 rows (the bf16 route pads them to whole 16-row tiles)
 SSD_SHAPES = [(1, 64, 2, 32, 32, 32), (2, 96, 3, 64, 64, 32),
               (1, 256, 2, 64, 128, 128), (2, 40, 2, 32, 32, 8),
-              (1, 128, 2, 128, 64, 64)]
+              (1, 128, 2, 128, 64, 64), (1, 8, 2, 32, 32, 1),
+              (2, 100, 3, 64, 64, 4), (2, 48, 2, 64, 128, 8),
+              (2, 120, 2, 64, 32, 40), (1, 100, 2, 32, 64, 100)]
 # the plain version sums in another order: a few ulp of max|y| over the
 # sequence
 SSD_TOL = 1e-5
+# the bf16 route (tensor cores) splits each f32 operand of its products
+# (G, the state H, W) into bf16 halves hi + lo, off the operand by at most
+# 2^-18 of it; x, B and C enter exact. So y moves by at most 2^-18 y_abs
+# and the state by 2^-18 state_abs, the abs-value sums that
+# ssd_ref.split_bf16_route returns (|C| |B|^T o L o dt against |x|, plus
+# twice exp(cum) |C| Habs^T: H's residual and the residuals of W carried
+# in H). Held to twice that plus the f32 route's SSD_TOL of max|plain|
+# for the sums' order. Against the emulation of the route's rounding (the
+# kernel's cumsum order, the same halves of nearly the same operands),
+# element by element with no relative-to-max term: where the two sides'
+# f32 operands differ in their last bits their halves round apart, so
+# each side's residual counts (2 x 2^-18), and the orders of their f32
+# sums add sqrt(256) 2^-24 of the same sums each: 5 x 2^-19.
+SPLIT_PLAIN, SPLIT_EMULATED = 2.0 ** -17, 5 * 2.0 ** -19
 
 
 def _ssd_inputs(b, s, h, p, n, device, dtype, seed=0):
@@ -139,6 +156,18 @@ def _ssd_inputs(b, s, h, p, n, device, dtype, seed=0):
     return x, dt, a, bm, cm
 
 
+def _assert_split_route(y, st, args, chunk):
+    """The bf16 route's y and state against the plain version and the
+    emulation of its rounding, within the derived bounds."""
+    y_p, s_p = ssd_ref.ssd_chunked(*args, chunk)
+    y_e, s_e, y_abs, s_abs = ssd_ref.split_bf16_route(*args, chunk)
+    for got, plain, emu, scale in ((y, y_p, y_e, y_abs),
+                                   (st, s_p, s_e, s_abs)):
+        limit = SPLIT_PLAIN * scale + SSD_TOL * plain.abs().max()
+        assert bool(((got - plain).abs() <= limit).all())
+        assert bool(((got - emu).abs() <= SPLIT_EMULATED * scale).all())
+
+
 @pytest.mark.parametrize("shape", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_matches_plain_and_is_deterministic(cuda, shape, dtype):
@@ -149,12 +178,46 @@ def test_ssd_scan_matches_plain_and_is_deterministic(cuda, shape, dtype):
     y2, s2 = ssd_kernel.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_kernel.LAUNCHES["ssd_scan"] == before + 2
-    y_p, s_p = ssd_ref.ssd_chunked(*args, chunk)
-    torch.testing.assert_close(y1, y_p, rtol=0,
-                               atol=SSD_TOL * float(y_p.abs().max()))
-    torch.testing.assert_close(s1, s_p, rtol=0,
-                               atol=SSD_TOL * float(s_p.abs().max()))
+    if dtype == torch.bfloat16:
+        _assert_split_route(y1, s1, args, chunk)
+    else:
+        y_p, s_p = ssd_ref.ssd_chunked(*args, chunk)
+        torch.testing.assert_close(y1, y_p, rtol=0,
+                                   atol=SSD_TOL * float(y_p.abs().max()))
+        torch.testing.assert_close(s1, s_p, rtol=0,
+                                   atol=SSD_TOL * float(s_p.abs().max()))
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_bf16_takes_what_the_f32_route_cannot_hold(cuda):
+    """P = N = 128 at chunk 128: the bf16 route's ring has 1 stage."""
+    args = _ssd_inputs(1, 256, 2, 128, 128, cuda, torch.bfloat16)
+    assert ssd_kernel.shared_memory(128, 128, 128)["stages"] == 1
+    y, st = ssd_kernel.ssd_scan(*args, chunk=128)
+    _assert_split_route(y, st, args, 128)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_ssd_scan_bf16_views_match_contiguous_copies(cuda, misaligned):
+    """x, B and C as views into one projection row, as the model passes
+    them; misaligned (odd row, start off 16 bytes), they are loaded
+    element by element, with the same arithmetic."""
+    b, s, h, p, n, chunk = 2, 96, 3, 64, 64, 32
+    row = h * p + 2 * n + int(misaligned)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    buf = torch.randn((b * s * row + 1,), generator=g,
+                      device=cuda).bfloat16()
+    xbc = buf[int(misaligned):int(misaligned) + b * s * row].view(b, s, row)
+    x = xbc[..., :h * p].view(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:h * p + 2 * n]
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    dt = torch.rand((b, s, h), generator=g, device=cuda) * 0.2
+    a = -torch.ones((h,), device=cuda)
+    y, st = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    args = (x.contiguous(), dt, a, bm.contiguous(), cm.contiguous())
+    y_c, s_c = ssd_kernel.ssd_scan(*args, chunk=chunk)
+    assert torch.equal(y, y_c) and torch.equal(st, s_c)
+    _assert_split_route(y, st, args, chunk)
 
 
 def test_ssd_scan_takes_strided_model_views(cuda):

@@ -1,8 +1,11 @@
 """The port's SSD chunk scan and Mamba2 block against the JAX reference on
 the CPU: ``kernels/ssd_scan`` (whose CPU route is the plain version
 ``ssd_chunked``) against the reference's ``ssd_chunked`` and its Pallas
-``ssd_scan`` in interpret mode, then ``mamba_train`` / ``mamba_decode``
-with the weights carried across by ``repro_torch.convert``."""
+``ssd_scan`` in interpret mode; the emulation of the card's bf16 route
+(``ref.split_bf16_route``) against both and against the plain version,
+within the bound derived from its split operands; then ``mamba_train`` /
+``mamba_decode`` with the weights carried across by
+``repro_torch.convert``."""
 import dataclasses
 
 import jax
@@ -20,6 +23,7 @@ from repro_torch import convert
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.kernels.ssd_scan import kernel as t_kernel
 from repro_torch.kernels.ssd_scan import ops as t_ops
+from repro_torch.kernels.ssd_scan import ref as t_ref
 from repro_torch.models import mamba2 as tm
 
 # f32 sums in another order (XLA vs ATen einsums, a sequential vs a
@@ -73,6 +77,105 @@ def test_plain_scan_matches_reference_and_pallas(shape, dtype):
                                    atol=ATOL)
         np.testing.assert_allclose(st.numpy(), np.asarray(want_s),
                                    rtol=RTOL, atol=ATOL)
+
+
+# The bf16 route of csrc/ssd_scan.cu splits each f32 operand of its
+# products (G, the carried state H, W) into bf16 halves v = hi + lo,
+# hi = bf16(v), lo = bf16(v - hi): |v - hi - lo| <= 2^-9 |v - hi| <=
+# 2^-18 |v|. x, B and C are bf16 inputs and enter exact, and bf16
+# products are exact in f32. So the split moves y by at most 2^-18 of
+# y_abs = (|C| |B|^T o L o dt) |x| + 2 exp(cum) |C| Habs^T (G's residual,
+# |G| <= |C| |B|^T o L o dt; H's residual and the residuals of W carried
+# in H, Habs >= |H|) and the state by 2^-18 Habs. The bound is twice
+# that, plus 1e-5 of the largest value for the f32 sums' order (the
+# cumsum above all), as the f32 route is held on the card.
+SPLIT = 2.0 ** -17
+ORDER = 1e-5
+
+
+def _split_limit(scale, want):
+    return SPLIT * scale + ORDER * np.abs(np.asarray(want)).max()
+
+
+def _split_ratio(got, want, scale):
+    """The largest |got - want| over its derived limit."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float((err / _split_limit(scale.numpy(), want)).max())
+
+
+def _lane_cumsum(v):
+    """The kernels' one-warp scan, one f32 operation at a time."""
+    f = np.float32
+    q = len(v)
+    per = -(-q // 32)
+    out = [f(0)] * q
+    runs = []
+    for lane in range(32):
+        run = f(0)
+        for i in range(lane * per, min(q, lane * per + per)):
+            run = f(run + f(v[i]))
+            out[i] = run
+        runs.append(run)
+    incl = list(runs)
+    for off in (1, 2, 4, 8, 16):
+        incl = [f(incl[k] + incl[k - off]) if k >= off else incl[k]
+                for k in range(32)]
+    for lane in range(1, 32):
+        for i in range(lane * per, min(q, lane * per + per)):
+            out[i] = f(out[i] + incl[lane - 1])
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("q", [1, 4, 8, 33, 40, 100, 128])
+def test_warp_cumsum_is_the_kernels_order(q):
+    la = -np.random.default_rng(q).random(q).astype(np.float32)
+    got = t_ref.warp_cumsum(torch.from_numpy(la)[None])[0].numpy()
+    np.testing.assert_array_equal(got, _lane_cumsum(la))
+    np.testing.assert_allclose(got, np.cumsum(la, dtype=np.float64),
+                               rtol=2e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 100, 2, 32, 64, 4),
+                                            (1, 120, 2, 64, 32, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_route_matches_reference_and_pallas(shape):
+    b, s, h, p, n, chunk = shape
+    args = _inputs(b, s, h, p, n, seed=sum(shape), dtype="bf16")
+    y, st, y_abs, s_abs = t_ref.split_bf16_route(*map(_t, args), chunk)
+    jargs = [jnp.asarray(a) for a in args]
+    yj, sj = jm.ssd_chunked(*jargs, chunk)
+    yp, sp = j_ssd_pallas(*jargs, chunk=chunk, interpret=True)
+    for want_y, want_s in ((yj, sj), (yp, sp)):
+        assert _split_ratio(y, want_y, y_abs) <= 1.0
+        assert _split_ratio(st, want_s, s_abs) <= 1.0
+
+
+@pytest.mark.parametrize("p,n", [(p, n) for p in (32, 64, 128)
+                                 for n in (32, 64, 128)])
+@pytest.mark.parametrize("chunk", [4, 8, 32, 128])
+def test_split_route_matches_plain_scan(chunk, p, n):
+    s = max(64, 2 * chunk)
+    args = [_t(a) for a in _inputs(1, s, 2, p, n, seed=chunk + p + n,
+                                   dtype="bf16")]
+    y, st, y_abs, s_abs = t_ref.split_bf16_route(*args, chunk)
+    y_p, s_p = t_kernel.ssd_scan(*args, chunk=chunk)
+    assert _split_ratio(y, y_p, y_abs) <= 1.0
+    assert _split_ratio(st, s_p, s_abs) <= 1.0
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_split_bound_is_not_vacuous(shape):
+    """One bf16 rounding of G, H and W (2^-9 of each) breaks the bound
+    that the split meets."""
+    b, s, h, p, n, chunk = shape
+    args = [_t(a) for a in _inputs(b, s, h, p, n, seed=sum(shape),
+                                   dtype="bf16")]
+    y_p, s_p = t_kernel.ssd_scan(*args, chunk=chunk)
+    y, st, y_abs, s_abs = t_ref.split_bf16_route(*args, chunk)
+    y1, s1, _, _ = t_ref.split_bf16_route(*args, chunk, split=False)
+    assert _split_ratio(y, y_p, y_abs) <= 1.0
+    assert _split_ratio(y1, y_p, y_abs) > 4.0
+    assert _split_ratio(s1, s_p, s_abs) > 4.0
 
 
 def test_plain_scan_carries_an_initial_state():
