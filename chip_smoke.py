@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile      # and profiled extra runs
     python3 chip_smoke.py --time-ssd     # only ssd_scan's and a warm
                                          # zamba2-2.7b prefill's times
+    python3 chip_smoke.py --time-rows    # only the row kernels' times
+                                         # and the kernel_api chain
 
 Phases, each printing one JSON line:
 
@@ -30,11 +32,16 @@ Phases, each printing one JSON line:
    ``scaled_dot_product_attention``, with TFLOP/s, the share of the bound
    and the bf16 kernel's ``ptxas`` registers and spills; ``clip_norm``,
    ``randk_gather`` and ``aircomp_combine`` at ragged small shapes (f32
-   and bf16, the combine with duplicate rows too; the clip and the
-   combine also on views off 16-byte alignment), the clip at 268 MB
-   (above L2), and at the VGG-11 update padded to 72,054 rows of 128
-   lanes, with the 21,616 rand-k rows of p = 0.3, where the device
-   kernels of one clip and one combine call are counted (1 each).
+   and bf16, the combine with duplicate rows too; all three also on
+   views off 16-byte alignment, which must equal their aligned copies;
+   the gather with a number and a tensor scale, at odd k_rows, with
+   indices out of range (NaN rows) and on a bf16 delta of more than 2^24
+   rows), the clip at 268 MB (above L2), and at the VGG-11 update padded
+   to 72,054 rows of 128 lanes, with the 21,616 rand-k rows of p = 0.3,
+   where the device kernels of one call of each are counted (1 each, the
+   gather's with either scale), the gather also in bf16 and beside
+   ``index_select`` alone (the gather without the scale), with its
+   ``ptxas`` registers and spills.
 4. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
    VGG-11 (d = 9,222,858) with N = 1000 clients of 50 CIFAR-size
    synthetic images, r = 32, tau = 5, transmit clip 0.25, fused kernels,
@@ -81,6 +88,13 @@ zamba2-2.7b prefills plus one profiled, and prints no result line. It
 uses only what every tree of the port has: copy this script into a parent
 commit's checkout (``git archive``) and run it there and here in turns,
 in one call, to compare the two.
+
+``--time-rows`` runs the device phase and then only times the three row
+kernels at the VGG-11 shapes (warm and cold L2; the gather in f32 and
+bf16 with a tensor and a number scale, beside ``index_select``, with the
+device kernels of one call), runs the ``kernel_api`` chain three times,
+and prints no result line. Like ``--time-ssd`` it uses only what every
+tree of the port has, for the same turns with a parent commit.
 
 Then the kernel summary line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -153,12 +167,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def cold_ms(fn, reps: int = 20, warmup: int = 3,
-            flush_bytes: int = 512 * 2 ** 20) -> float:
+            flush_bytes: int = 512 * 2 ** 20, read: bool = False) -> float:
     """Median CUDA-event time of one call that finds the 50 MB L2 cold:
     before each call the card writes ``flush_bytes`` of scratch, which
     evicts the cache and keeps the card busy while the host enqueues the
     call, so the pair of events times the device work and not the host's
-    time before the launch."""
+    time before the launch. The written lines stay dirty in L2, so the
+    call may also pay their write-back as it fills L2; with ``read`` the
+    card sums the scratch instead, which leaves L2 clean."""
     import torch
     flush = torch.empty((flush_bytes // 4,), dtype=torch.float32,
                         device="cuda")
@@ -167,7 +183,10 @@ def cold_ms(fn, reps: int = 20, warmup: int = 3,
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if read:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -674,14 +693,14 @@ def _ptxas(source, entry):
     """Registers and spills of each instantiation of a kernel, from this
     process's build log of ``source`` (empty if the library was built
     earlier): ``entry`` is a regex on the mangled name whose groups are
-    the template's integer arguments, the key."""
+    the template's arguments, the key (integers as ints)."""
     import re
     from repro_torch.kernels import _build
     out, key = {}, None
     for ln in _build.BUILD_LOGS.get(source, "").splitlines():
         m = re.search(entry, ln)
         if m:
-            key = tuple(int(v) for v in m.groups())
+            key = tuple(int(v) if v.isdigit() else v for v in m.groups())
             key = key[0] if len(key) == 1 else key
             out.setdefault(key, {})
             continue
@@ -726,6 +745,13 @@ ROW_ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
 CLIP_OUT_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
 # clip_norm above L2's size: 2^19 rows of 128 f32 (268 MB)
 CLIP_ABOVE_L2_ROWS = 2 ** 19
+# the gather's scale beta/|h_i| (a number and an f32 tensor; it rounds
+# apart in f32 and bf16), k_rows that leave a warp's group of rows part
+# filled (odd counts: in bf16 a warp step takes two rows), and R past
+# 2^24 rows of bf16 (4.3 GB), whose element offsets pass 2^31
+GATHER_SCALE = 0.05 / 0.015
+GATHER_SMALL = ((300, 3), (300, 5))
+GATHER_LARGE_ROWS = 2 ** 24 + 4_096
 
 
 def _randn(shape, seed, dtype_name="float32", scale=1.0):
@@ -833,21 +859,47 @@ def check_clip_at(rows, dtype_name, seed, timed, misaligned=False):
     return summary
 
 
-def check_gather_at(rows, k_rows, dtype_name, seed, timed):
+def gather_ptxas():
+    """The gather kernel's registers and spills, by (dtype, vector
+    path)."""
+    found = _ptxas("randk_gather",
+                   r"gather_kernelI(f|13__nv_bfloat16)Lb([01])E")
+    return {f"{'f32' if dt == 'f' else 'bf16'} "
+            f"{'vector' if vec else 'scalar'}": v
+            for (dt, vec), v in found.items()}
+
+
+def check_gather_at(rows, k_rows, dtype_name, seed, timed,
+                    misaligned=False):
+    """The gather with a tensor scale and with a number scale (each
+    bit-equal to the plain version given the same scale), twice for
+    bit-identity; on a view off 16-byte alignment also bit-equal to the
+    aligned copy's result. Timed: both scales, the plain version and
+    ``index_select`` alone, warm and cold, and the device kernels of one
+    call with each scale."""
     import torch
     from repro_torch.kernels.randk_gather import kernel, ref
     delta = _randn((rows, 128), seed, dtype_name, scale=0.01)
     idx = _row_indices(rows, k_rows, seed)
-    scale = torch.tensor(37.5, device="cuda")     # beta / |h_i|
-    o1 = kernel.randk_gather(delta, idx, scale)
-    o2 = kernel.randk_gather(delta, idx, scale)
-    o_p = ref.randk_gather_ref(delta, idx, scale)
+    t_scale = torch.tensor(GATHER_SCALE, device="cuda")   # beta / |h_i|
+    src = _misaligned(delta) if misaligned else delta
+    o1 = kernel.randk_gather(src, idx, t_scale)
+    o2 = kernel.randk_gather(src, idx, t_scale)
+    o_n = kernel.randk_gather(src, idx, GATHER_SCALE)
+    o_al = kernel.randk_gather(delta, idx, t_scale) if misaligned else o1
+    o_p = ref.randk_gather_ref(delta, idx, t_scale)
+    o_pn = ref.randk_gather_ref(delta, idx, GATHER_SCALE)
     torch.cuda.synchronize()
     same = bool(torch.equal(o1, o_p))
+    same_n = bool(torch.equal(o_n, o_pn))
+    aligned = bool(torch.equal(o1, o_al))
     bit = bool(torch.equal(o1, o2))
     line = {"phase": "kernels", "kernel": "randk_gather",
             "shape": {"R": rows, "k_rows": k_rows, "lanes": 128},
-            "dtype": dtype_name, "bit_identical_to_plain": same,
+            "dtype": dtype_name, "misaligned": misaligned,
+            "bit_identical_to_plain": same,
+            "number_scale_bit_identical_to_plain": same_n,
+            "equal_to_aligned_copy": aligned,
             "max_abs_err": float((o1.float() - o_p.float()).abs().max()),
             "bit_identical": bit, "tolerance": "bit-identical"}
     summary = None
@@ -855,29 +907,113 @@ def check_gather_at(rows, k_rows, dtype_name, seed, timed):
         elem = delta.element_size()
         n_bytes = 2 * k_rows * 128 * elem + 4 * k_rows + elem
         bound, by = bound_ms(n_bytes, 1.0 * k_rows * 128)
-        fns = {"kernel": lambda: kernel.randk_gather(delta, idx, scale),
-               "plain": lambda: ref.randk_gather_ref(delta, idx, scale)}
+        fns = {"kernel": lambda: kernel.randk_gather(delta, idx, t_scale),
+               "kernel_number_scale": lambda: kernel.randk_gather(
+                   delta, idx, GATHER_SCALE),
+               "plain": lambda: ref.randk_gather_ref(delta, idx, t_scale),
+               "index_select": lambda: torch.index_select(delta, 0, idx)}
         times = {k: time_ms(f) for k, f in fns.items()}
-        line.update({"times_ms": times,
-                     "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
-                     "bytes": n_bytes,
-                     "library": "none: no one PyTorch call gathers and "
-                                "scales"})
+        cold = {k: cold_ms(f) for k, f in fns.items()}
+        line.update({
+            "times_ms": times, "cold_ms": cold, "bytes": n_bytes,
+            "bound_ms": bound, "cold_share_of_bound": bound / cold["kernel"],
+            "device_kernels_per_call": {
+                "tensor_scale": device_kernels(fns["kernel"]),
+                "number_scale": device_kernels(
+                    fns["kernel_number_scale"])},
+            "ptxas": gather_ptxas(),
+            "library": "none: no one PyTorch call gathers and scales; "
+                       "index_select is the gather without the scale"})
         summary = {"max_abs_err": line["max_abs_err"], "ms": times["kernel"],
                    "plain_ms": times["plain"], "bound_ms": bound,
                    "bound_by": by, "library_ms": None,
-                   "cold_ms": line["cold_ms"]}
+                   "index_select_ms": times["index_select"],
+                   "cold_ms": cold,
+                   "device_kernels_per_call":
+                       line["device_kernels_per_call"]}
     emit(line)
     failures = []
-    if not same:
+    if timed and set(line["device_kernels_per_call"].values()) != {1}:
+        failures.append(f"randk_gather ran {line['device_kernels_per_call']}"
+                        f" device kernels a call, expected 1")
+    if not (same and same_n):
         failures.append(f"randk_gather {rows}x{k_rows} {dtype_name} "
-                        f"disagrees with its plain version")
+                        f"(misaligned {misaligned}) disagrees with its plain "
+                        f"version")
+    if not aligned:
+        failures.append(f"randk_gather {rows}x{k_rows} {dtype_name}: the "
+                        f"misaligned view differs from the aligned copy")
     if not bit:
         failures.append(f"randk_gather {rows}x{k_rows} is not bit-identical "
                         f"run to run")
     if failures:
         raise AssertionError("; ".join(failures))
     return summary
+
+
+def check_gather_out_of_range():
+    """Indices outside [0, R) give rows of NaN, on the vector and the
+    scalar path, in both dtypes; the rows in range are the plain
+    version's."""
+    import torch
+    from repro_torch.kernels.randk_gather import kernel, ref
+    rows = 40
+    idx = torch.tensor([7, rows, -1, 0, 2 ** 31 - 1, 39, -2 ** 31],
+                       dtype=torch.int32, device="cuda")
+    bad = torch.tensor([False, True, True, False, True, False, True],
+                       device="cuda")
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        delta = _randn((rows, 128), 30, dtype)
+        for misaligned in (False, True):
+            src = _misaligned(delta) if misaligned else delta
+            out = kernel.randk_gather(src, idx, 0.5)
+            want = ref.randk_gather_ref(delta, idx[~bad], 0.5)
+            results[f"{dtype}{' misaligned' if misaligned else ''}"] = bool(
+                torch.isnan(out[bad]).all() and torch.equal(out[~bad], want))
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "randk_gather",
+          "what": "indices out of range give NaN rows", "rows": rows,
+          "idx": idx.tolist(), "nan_rows_and_plain_rows": results})
+    if not all(results.values()):
+        raise AssertionError(f"randk_gather out-of-range rows: {results}")
+
+
+def check_gather_large_rows():
+    """bf16 delta of more than 2^24 rows (4.3 GB), gathered at indices
+    past row 2^24, where the element offset passes 2^31: bit-equal to the
+    plain version with a number and a tensor scale."""
+    import torch
+    from repro_torch.kernels.randk_gather import kernel, ref
+    rows = GATHER_LARGE_ROWS
+    g = torch.Generator(device="cuda").manual_seed(32)
+    delta = torch.empty((rows, 128), dtype=torch.bfloat16,
+                        device="cuda").normal_(generator=g)
+    idx = torch.cat([
+        torch.randint(0, rows, (4_096,), generator=g, device="cuda",
+                      dtype=torch.int32),
+        torch.tensor([2 ** 24, rows - 1, 2 ** 24 + 1], dtype=torch.int32,
+                     device="cuda")])
+    t_scale = torch.tensor(GATHER_SCALE, device="cuda")
+    o_t = kernel.randk_gather(delta, idx, t_scale)
+    o_n = kernel.randk_gather(delta, idx, GATHER_SCALE)
+    same_t = bool(torch.equal(o_t, ref.randk_gather_ref(delta, idx,
+                                                        t_scale)))
+    same_n = bool(torch.equal(o_n, ref.randk_gather_ref(delta, idx,
+                                                        GATHER_SCALE)))
+    max_offset = int(idx.max()) * 128
+    emit({"phase": "kernels", "kernel": "randk_gather",
+          "shape": {"R": rows, "k_rows": int(idx.numel()), "lanes": 128},
+          "dtype": "bfloat16", "delta_bytes": delta.numel() * 2,
+          "max_element_offset": max_offset,
+          "bit_identical_to_plain": {"tensor_scale": same_t,
+                                     "number_scale": same_n},
+          "tolerance": "bit-identical"})
+    del delta
+    torch.cuda.empty_cache()
+    if max_offset < 2 ** 31 or not (same_t and same_n):
+        raise AssertionError("randk_gather past 2^24 rows disagrees with "
+                             "its plain version")
 
 
 def check_combine_at(rows, k_rows, dtype_name, seed, timed,
@@ -965,10 +1101,11 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
 
 def check_row_kernels():
     """The three row kernels at ragged small shapes in f32 and bf16
-    (the combine with duplicate rows too; the clip and the combine also
-    on operands off 16-byte alignment), the clip above L2's size, then
-    timed at the VGG-11 shapes in f32 with the device kernels of one call
-    counted."""
+    (the combine with duplicate rows too; all three also on operands off
+    16-byte alignment; the gather also at odd k_rows, out of range and
+    past 2^24 rows), the clip above L2's size, then timed at the VGG-11
+    shapes in f32 (the gather in bf16 too) with the device kernels of one
+    call counted."""
     for i, (rows, k_rows) in enumerate(ROW_SMALL):
         for dtype in ("float32", "bfloat16"):
             check_clip_at(rows, dtype, seed=i, timed=False)
@@ -977,19 +1114,29 @@ def check_row_kernels():
             check_combine_at(rows, 4 * k_rows, dtype, seed=i, timed=False,
                              duplicates=True)
             check_clip_at(rows, dtype, seed=i, timed=False, misaligned=True)
+            check_gather_at(rows, k_rows, dtype, seed=i, timed=False,
+                            misaligned=True)
             check_combine_at(rows, k_rows, dtype, seed=i, timed=False,
                              misaligned=True)
             check_combine_at(rows, 4 * k_rows, dtype, seed=i, timed=False,
                              duplicates=True, misaligned=True)
+    for i, (rows, k_rows) in enumerate(GATHER_SMALL):
+        for dtype in ("float32", "bfloat16"):
+            check_gather_at(rows, k_rows, dtype, seed=10 + i, timed=False)
+    check_gather_out_of_range()
+    check_gather_large_rows()
     # x of 268 MB, above the 50 MB L2: the second read comes from HBM
     check_clip_at(CLIP_ABOVE_L2_ROWS, "float32", seed=20, timed=False)
     k_rows = MAIN_K // 128
-    return {"clip_norm": check_clip_at(VGG_ROWS, "float32", seed=21,
-                                       timed=True),
-            "randk_gather": check_gather_at(VGG_ROWS, k_rows, "float32",
-                                            seed=22, timed=True),
-            "aircomp_combine": check_combine_at(VGG_ROWS, k_rows, "float32",
-                                                seed=23, timed=True)}
+    summary = {"clip_norm": check_clip_at(VGG_ROWS, "float32", seed=21,
+                                          timed=True),
+               "randk_gather": check_gather_at(VGG_ROWS, k_rows, "float32",
+                                               seed=22, timed=True),
+               "aircomp_combine": check_combine_at(VGG_ROWS, k_rows,
+                                                   "float32", seed=23,
+                                                   timed=True)}
+    check_gather_at(VGG_ROWS, k_rows, "bfloat16", seed=24, timed=True)
+    return summary
 
 
 def phase_kernels():
@@ -1937,6 +2084,70 @@ def phase_ssd_timing():
     emit(line)
 
 
+def _warm_cold(fn):
+    return {"warm_ms": time_ms(fn), "cold_ms": cold_ms(fn)}
+
+
+def phase_row_timing():
+    """``--time-rows``: the three row kernels alone at the VGG-11 shapes,
+    warm and cold L2 (the gather in f32 and bf16, with a tensor and a
+    number scale, beside ``index_select`` alone and the device kernels of
+    one call), then the ``kernel_api`` chain three times. It uses only
+    what every tree of the port has, so a parent commit is measured by
+    copying this script into its checkout and running it there and here
+    in turns, in one call."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aircomp_combine import kernel as comb
+    from repro_torch.kernels.clip_norm import kernel as clip
+    from repro_torch.kernels.randk_gather import kernel as gather
+    t0 = time.perf_counter()
+    _build.build([m.SOURCE for m in (clip, gather, comb)])
+    line = {"phase": "row_timing", "tree": ROOT,
+            "build_s": time.perf_counter() - t0}
+    k_rows = MAIN_K // 128
+    x = _randn((VGG_ROWS, 128), 21, scale=0.01)
+    line["clip_norm"] = _warm_cold(lambda: clip.clip_norm(x, 0.25))
+    del x
+    idx = _row_indices(VGG_ROWS, k_rows, 22)
+    t_scale = torch.tensor(GATHER_SCALE, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        delta = _randn((VGG_ROWS, 128), 22, dtype, scale=0.01)
+        elem = delta.element_size()
+        fns = {"tensor_scale": lambda: gather.randk_gather(delta, idx,
+                                                           t_scale),
+               "number_scale": lambda: gather.randk_gather(delta, idx,
+                                                           GATHER_SCALE),
+               "index_select": lambda: torch.index_select(delta, 0, idx)}
+        entry = {k: _warm_cold(f) for k, f in fns.items()}
+        # the same bytes moved by one contiguous copy, and the gather and
+        # the copy after a flush that leaves L2 clean
+        src = delta[:k_rows]
+        dst = torch.empty_like(src)
+        entry["copy_same_bytes"] = _warm_cold(lambda: dst.copy_(src))
+        entry["cold_ms_clean_l2"] = {
+            "tensor_scale": cold_ms(fns["tensor_scale"], read=True),
+            "copy_same_bytes": cold_ms(lambda: dst.copy_(src), read=True)}
+        del src, dst
+        entry["bound_ms"] = bound_ms(2 * k_rows * 128 * elem + 4 * k_rows
+                                     + elem, 1.0 * k_rows * 128)[0]
+        entry["device_kernels_per_call"] = {
+            k: device_kernels(fns[k]) for k in ("tensor_scale",
+                                                "number_scale")}
+        line[f"randk_gather_{dtype}"] = entry
+        del delta
+    theta = _randn((VGG_ROWS, 128), 23)
+    y = _randn((k_rows, 128), 24, scale=0.01)
+    inv = 1.0 / (MAIN_R * 0.05)
+    line["aircomp_combine"] = _warm_cold(
+        lambda: comb.aircomp_combine(theta, y, idx, inv))
+    del theta, y
+    torch.cuda.empty_cache()
+    emit(line)
+    for _ in range(3):
+        phase_kernel_api()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1949,6 +2160,10 @@ def main(argv=None) -> int:
                     help="only time ssd_scan at the two serving prefills "
                          "and a warm zamba2-2.7b prefill (no checks, no "
                          "result line): the comparison with a parent tree")
+    ap.add_argument("--time-rows", action="store_true",
+                    help="only time the three row kernels at the VGG-11 "
+                         "shapes and run the kernel_api chain (no result "
+                         "line): the comparison with a parent tree")
     args = ap.parse_args(argv)
 
     import torch
@@ -1961,6 +2176,10 @@ def main(argv=None) -> int:
     smi = phase_device()
     if args.time_ssd:
         phase_ssd_timing()
+        print(smi, flush=True)
+        return 0
+    if args.time_rows:
+        phase_row_timing()
         print(smi, flush=True)
         return 0
     phase_build()

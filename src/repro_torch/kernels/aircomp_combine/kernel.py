@@ -8,12 +8,12 @@ device is the route: a CPU tensor runs the plain update
 (``ref.add_rows_``); a CUDA tensor launches the kernel or raises. The
 wrapper checks dtypes (theta and y f32 or bf16 alike, indices int32),
 shapes and contiguity. 1/(r beta) reaches the kernel cast to y's dtype,
-as the TPU kernel casts it: a number is rounded on the host
-(``host_scalar``, as ``scalar_like`` rounds it) and passed by value; a
-tensor is passed by pointer, converted first only if its dtype or device
-differs. One launch on the current stream (the device switched only when
-theta's is not the current one); it raises if the launch reports an
-error, and adds one to ``LAUNCHES["aircomp_combine"]``.
+as the TPU kernel casts it (``_route.scalar_arg``): a number is rounded
+on the host and passed by value; a tensor is passed by pointer,
+converted first only if its dtype or device differs. One launch on the
+current stream (the device switched only when theta's is not the
+current one); it raises if the launch reports an error, and adds one to
+``LAUNCHES["aircomp_combine"]``.
 
 Duplicate rows accumulate on both routes. The kernel adds each element
 with an atomic reduction: with unique rows (what
@@ -32,8 +32,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import (current_stream, host_scalar,
-                                       on_cpu)
+from repro_torch.kernels._route import current_stream, on_cpu, scalar_arg
 from repro_torch.kernels.aircomp_combine import ref
 
 SOURCE = "aircomp_combine"
@@ -95,30 +94,22 @@ def aircomp_combine(theta_rows: torch.Tensor, y_rows: torch.Tensor,
     if rows < 1 or k_rows < 1:
         raise ValueError(f"empty operand: theta_rows "
                          f"{tuple(theta_rows.shape)}, k_rows {k_rows}")
-    if isinstance(inv_rbeta, torch.Tensor):
-        if inv_rbeta.numel() != 1:
-            raise ValueError(f"inv_rbeta must hold one value, got "
-                             f"{tuple(inv_rbeta.shape)}")
-        inv = inv_rbeta
-        if inv.dtype != y_rows.dtype or inv.device != y_rows.device:
-            inv = inv.to(device=y_rows.device, dtype=y_rows.dtype)
-        inv_ptr, inv_val = inv.data_ptr(), 0.0
-    else:
-        inv_ptr, inv_val = None, host_scalar(inv_rbeta, y_rows.dtype)
+    inv, _, inv_val = scalar_arg(inv_rbeta, y_rows, "inv_rbeta")
     if theta_rows.get_device() == torch.cuda.current_device():
-        err = _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val)
+        err = _launch(theta_rows, y_rows, idx_rows, inv, inv_val)
     else:
         with torch.cuda.device(theta_rows.device):
-            err = _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val)
+            err = _launch(theta_rows, y_rows, idx_rows, inv, inv_val)
     if err != 0:
         raise RuntimeError(f"aircomp_combine: CUDA error {err} at launch")
     LAUNCHES["aircomp_combine"] += 1
     return theta_rows
 
 
-def _launch(theta_rows, y_rows, idx_rows, inv_ptr, inv_val) -> int:
+def _launch(theta_rows, y_rows, idx_rows, inv, inv_val) -> int:
     return _lib().aircomp_combine_launch(
         int(theta_rows.dtype == torch.bfloat16), theta_rows.data_ptr(),
-        y_rows.data_ptr(), idx_rows.data_ptr(), inv_ptr, inv_val,
+        y_rows.data_ptr(), idx_rows.data_ptr(),
+        None if inv is None else inv.data_ptr(), inv_val,
         theta_rows.shape[0], idx_rows.shape[0],
         current_stream(theta_rows.get_device()))

@@ -6,11 +6,16 @@ Pallas TPU kernel ``randk_gather`` of
 The tensor's device is the route: a CPU tensor runs the plain version
 (``ref.randk_gather_ref``); a CUDA tensor launches the kernel or raises.
 The wrapper checks dtypes (delta f32 or bf16, indices int32), shapes and
-contiguity, casts the scale to delta's dtype on the device, allocates the
-output with ``torch.empty``, launches on the current stream, raises if
-the launch reports an error, and adds one to ``LAUNCHES["randk_gather"]``.
-Indices must lie in [0, R): the kernel writes NaN for a row outside, the
-plain version raises.
+contiguity. The scale reaches the kernel cast to delta's dtype, as the
+TPU kernel casts it (``_route.scalar_arg``): a number is rounded on the
+host and passed by value; a tensor of delta's dtype or of f32 on delta's
+device is passed by pointer (the kernel rounds an f32 scale to delta's
+dtype, as the cast would), any other is converted first. So a call with
+a number or an f32 tensor is one device kernel. The wrapper allocates the output with ``torch.empty`` and makes
+one launch on the current stream (the device switched only when delta's
+is not the current one); it raises if the launch reports an error, and
+adds one to ``LAUNCHES["randk_gather"]``. Indices must lie in [0, R):
+the kernel writes NaN for a row outside, the plain version raises.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import on_cpu, scalar_like
+from repro_torch.kernels._route import current_stream, on_cpu, scalar_arg
 from repro_torch.kernels.randk_gather import ref
 
 SOURCE = "randk_gather"
@@ -41,7 +46,8 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
-        lib.randk_gather_launch.argtypes = [ctypes.c_int, _P, _P, _P, _P,
+        lib.randk_gather_launch.argtypes = [ctypes.c_int, _P, _P, _P,
+                                            ctypes.c_int, ctypes.c_float, _P,
                                             _LL, _LL, _P]
         lib.randk_gather_launch.restype = ctypes.c_int
         lib._typed = True
@@ -76,16 +82,24 @@ def randk_gather(delta_rows: torch.Tensor, idx_rows: torch.Tensor,
     if rows < 1 or k_rows < 1:
         raise ValueError(f"empty operand: delta_rows "
                          f"{tuple(delta_rows.shape)}, k_rows {k_rows}")
-    s = scalar_like(scale, delta_rows)
+    s, s_f32, s_val = scalar_arg(scale, delta_rows, "scale", f32_ok=True)
     out = torch.empty((k_rows, LANES), dtype=delta_rows.dtype,
                       device=delta_rows.device)
-    with torch.cuda.device(delta_rows.device):
-        stream = torch.cuda.current_stream(delta_rows.device).cuda_stream
-        err = _lib().randk_gather_launch(
-            int(delta_rows.dtype == torch.bfloat16), delta_rows.data_ptr(),
-            idx_rows.data_ptr(), s.data_ptr(), out.data_ptr(), rows, k_rows,
-            stream)
+    if delta_rows.get_device() == torch.cuda.current_device():
+        err = _launch(delta_rows, idx_rows, s, s_f32, s_val, out)
+    else:
+        with torch.cuda.device(delta_rows.device):
+            err = _launch(delta_rows, idx_rows, s, s_f32, s_val, out)
     if err != 0:
         raise RuntimeError(f"randk_gather: CUDA error {err} at launch")
     LAUNCHES["randk_gather"] += 1
     return out
+
+
+def _launch(delta_rows, idx_rows, s, s_f32, s_val, out) -> int:
+    return _lib().randk_gather_launch(
+        int(delta_rows.dtype == torch.bfloat16), delta_rows.data_ptr(),
+        idx_rows.data_ptr(), None if s is None else s.data_ptr(), s_f32,
+        s_val, out.data_ptr(),
+        delta_rows.shape[0], idx_rows.shape[0],
+        current_stream(delta_rows.get_device()))

@@ -416,6 +416,147 @@ def test_randk_gather_fills_an_index_out_of_range_with_nan(cuda):
     assert torch.isnan(out[1:3]).all()
 
 
+# beta/|h_i| that rounds apart in f32 and bf16
+GATHER_SCALE = 0.05 / 0.015
+# scales that round apart in f32 and bf16: bf16 ties (to even, down and
+# up), beta/|h| of the kernel API, a value inexact in f32, a negative tie
+GATHER_SCALES = (1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, GATHER_SCALE,
+                 0.05 / 0.02, -(1.0 + 2.0 ** -8))
+
+
+@pytest.mark.parametrize("rows,k_rows", [(513, 77), (300, 300)])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_misaligned_view_equals_aligned(cuda, rows, k_rows,
+                                                     dtype):
+    """delta off 16-byte alignment takes the scalar-load path: the same
+    bits as the vector path on the aligned copy, and as the plain
+    version."""
+    delta = _rows(rows, dtype, cuda, seed=rows + 1)
+    idx = prng.permutation(prng.PRNGKey(k_rows, cuda), rows)[:k_rows]
+    idx = idx.to(torch.int32)
+    view = _misaligned(delta)
+    got = gather_kernel.randk_gather(view, idx, GATHER_SCALE)
+    again = gather_kernel.randk_gather(view, idx, GATHER_SCALE)
+    aligned = gather_kernel.randk_gather(delta, idx, GATHER_SCALE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned) and torch.equal(got, again)
+    assert torch.equal(got, gather_ref.randk_gather_ref(delta, idx,
+                                                        GATHER_SCALE))
+
+
+@pytest.mark.parametrize("value", GATHER_SCALES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_number_scale_equals_tensor_scale(cuda, dtype, value):
+    """A number is rounded to delta's dtype on the host and passed by
+    value; an f32 tensor is passed by pointer and rounded to delta's
+    dtype in the kernel (at bf16 ties too): the same bits, and the plain
+    version's."""
+    delta = _rows(513, dtype, cuda, seed=15)
+    idx = prng.permutation(prng.PRNGKey(15, cuda), 513)[:200]
+    idx = idx.to(torch.int32)
+    by_value = gather_kernel.randk_gather(delta, idx, value)
+    by_ptr = gather_kernel.randk_gather(
+        delta, idx, torch.tensor(value, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(by_value, by_ptr)
+    assert torch.equal(by_value, gather_ref.randk_gather_ref(
+        delta, idx, value))
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_casts_an_f64_tensor_scale_first(cuda, dtype):
+    delta = _rows(64, dtype, cuda, seed=16)
+    idx = torch.arange(0, 64, 3, dtype=torch.int32, device=cuda)
+    scale = torch.tensor(GATHER_SCALE, dtype=torch.float64, device=cuda)
+    got = gather_kernel.randk_gather(delta, idx, scale)
+    want = gather_ref.randk_gather_ref(delta, idx, scale.to(dtype))
+    assert torch.equal(got, want) and got.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_takes_a_scale_held_on_the_host(cuda, dtype):
+    """A CPU tensor scale is copied to the card for the launch; the copy
+    is held until the kernel has read it, so the output, allocated after
+    it and of the same small size at one f32 row, cannot take its
+    memory."""
+    delta = _rows(64, dtype, cuda, seed=20)
+    for k_rows in (1, 2, 37):
+        idx = torch.arange(3, 3 + k_rows, dtype=torch.int32, device=cuda)
+        for _ in range(3):
+            got = gather_kernel.randk_gather(delta, idx,
+                                             torch.tensor(GATHER_SCALE))
+            assert torch.equal(got, gather_ref.randk_gather_ref(
+                delta, idx, GATHER_SCALE))
+
+
+@pytest.mark.parametrize("k_rows", [1, 3, 5, 77, 1_001])
+def test_randk_gather_bf16_odd_k_rows(cuda, k_rows):
+    """bf16 rows are half-warps, two a warp step: an odd count leaves one
+    row of the last step, and a group part filled."""
+    delta = _rows(2_000, torch.bfloat16, cuda, seed=k_rows)
+    idx = prng.permutation(prng.PRNGKey(k_rows, cuda), 2_000)[:k_rows]
+    idx = idx.to(torch.int32)
+    got = gather_kernel.randk_gather(delta, idx, GATHER_SCALE)
+    assert got.shape == (k_rows, 128)
+    assert torch.equal(got, gather_ref.randk_gather_ref(delta, idx,
+                                                        GATHER_SCALE))
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_many_groups_a_warp_match_plain(cuda, dtype):
+    """More rows than one resident wave of warps takes, so warps walk
+    several groups."""
+    rows, k_rows = 300_000, 270_001
+    delta = _rows(rows, dtype, cuda, seed=17)
+    idx = prng.permutation(prng.PRNGKey(17, cuda), rows)[:k_rows]
+    idx = idx.to(torch.int32)
+    got = gather_kernel.randk_gather(delta, idx, 0.37)
+    assert torch.equal(got, gather_ref.randk_gather_ref(delta, idx, 0.37))
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_out_of_range_nan_on_both_paths(cuda, misaligned,
+                                                     dtype):
+    delta = _rows(40, dtype, cuda, seed=18)
+    idx = torch.tensor([7, 40, -1, 0, 2 ** 31 - 1, 39, -2 ** 31],
+                       dtype=torch.int32, device=cuda)
+    bad = torch.tensor([False, True, True, False, True, False, True],
+                       device=cuda)
+    src = _misaligned(delta) if misaligned else delta
+    out = gather_kernel.randk_gather(src, idx, 0.5)
+    assert torch.isnan(out[bad]).all()
+    assert torch.equal(out[~bad],
+                       gather_ref.randk_gather_ref(delta, idx[~bad], 0.5))
+
+
+@pytest.mark.parametrize("scale", ["number", "f32 tensor",
+                                   "tensor of delta's dtype"])
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_randk_gather_runs_one_device_kernel_a_call(cuda, scale, dtype):
+    """No fill for a number scale, no cast for an f32 one (the kernel
+    rounds it to delta's dtype): one device kernel a call."""
+    delta = _rows(20_001, dtype, cuda, seed=19)
+    idx = prng.permutation(prng.PRNGKey(19, cuda), 20_001)[:6_000]
+    idx = idx.to(torch.int32)
+    arg = {"number": GATHER_SCALE,
+           "f32 tensor": torch.tensor(GATHER_SCALE, device=cuda),
+           "tensor of delta's dtype": torch.tensor(
+               GATHER_SCALE, device=cuda).to(dtype)}[scale]
+    got = gather_kernel.randk_gather(delta, idx, arg)
+    assert torch.equal(got, gather_ref.randk_gather_ref(delta, idx, arg))
+    assert _device_kernels(
+        lambda: gather_kernel.randk_gather(delta, idx, arg)) == 1
+
+
+def test_randk_gather_refuses_what_it_does_not_take(cuda):
+    delta = _rows(8, torch.float32, cuda)
+    idx = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one value"):
+        gather_kernel.randk_gather(delta, idx,
+                                   torch.ones(2, device=cuda))
+
+
 def test_gather_rows_entry_point_on_card(cuda):
     d, k = 300 * 128, 9_000
     delta = _rows(300, torch.float32, cuda, seed=4).reshape(-1)
@@ -464,6 +605,20 @@ def test_aircomp_combine_duplicate_rows_accumulate(cuda, dtype):
     ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -8
     torch.testing.assert_close(got.float(), want.float(), rtol=0.0,
                                atol=mult * ulp * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES)
+def test_aircomp_combine_takes_an_inv_held_on_the_host(cuda, dtype):
+    """A CPU tensor 1/(r beta) is copied to the card for the launch and
+    held until the kernel has read it."""
+    theta = _rows(64, dtype, cuda, seed=7)
+    y = _rows(5, dtype, cuda, seed=8)
+    idx = torch.tensor([3, 60, 0, 17, 9], dtype=torch.int32, device=cuda)
+    inv = torch.tensor(1.0 / (32 * 0.7))
+    want = comb_ref.aircomp_combine_ref(theta, y, idx, inv)
+    for _ in range(3):
+        got = comb_kernel.aircomp_combine(theta.clone(), y, idx, inv)
+        assert torch.equal(got, want)
 
 
 def test_aircomp_combine_drops_an_index_out_of_range(cuda):

@@ -6,10 +6,13 @@ at that file's shapes, in f32 and bf16, with the same row indices (from
 numpy); ``row_indices_from_coords`` against the reference's draw. On the
 CPU the kernel wrapper takes the plain route and never launches.
 
-Tolerance: none. The scale is cast to delta's dtype first on both sides
-and each element is one product, rounded once (in bf16 the product of two
-bf16 values is exact in f32, so its one rounding to bf16 is the same on
-both sides).
+Tolerance: none (bit-identical). The scale is cast to delta's dtype
+first on both sides and each element is one product, rounded once (in
+bf16 the product of two bf16 values is exact in f32, so its one rounding
+to bf16 is the same on both sides). The card's by-value route for a
+number scale (``_route.host_scalar`` through ``_route.scalar_arg``) and
+its offset-view route are held here
+through their plain equivalents on the same inputs.
 """
 import jax
 import jax.numpy as jnp
@@ -88,6 +91,93 @@ def test_row_indices_from_coords_matches_reference(seed, d, k):
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.shape == (max(k // 128, 1),)
     assert torch.unique(got).numel() == got.numel()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_of_an_offset_view_matches_reference_kernel(dtype):
+    """A flat delta that starts one element into its buffer (off 16-byte
+    alignment, the card's scalar-load path) gathers the same bits as the
+    reference's Pallas kernel on the same values."""
+    rows, k_rows = 96, 37
+    jd, td = _delta(rows, dtype, seed=21)
+    buf = torch.empty((rows * 128 + 1,), dtype=td.dtype)
+    view = buf[1:]
+    view.copy_(td)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    idx = np.random.default_rng(21).permutation(rows)[:k_rows]
+    idx = idx.astype(np.int32)
+    want = jgather_rows(jd, jnp.asarray(idx), 0.05 / 0.015)
+    got = gather_rows(view, torch.as_tensor(idx), 0.05 / 0.015)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# scales that round apart in f32 and bf16: bf16 ties (to even, down and
+# up), a value inexact in f32, beta/|h| of the kernel API, a negative tie;
+# and past f32's range (beta/|h_i| of a gain near 0): inf of its sign
+@pytest.mark.parametrize("value", [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                                   0.05 / 0.015, 0.05 / 0.02,
+                                   -(1.0 + 2.0 ** -8), 1e39, -1e39])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_number_and_tensor_scales_give_equal_bits(dtype, value):
+    """The card takes a number scale by value, rounded on the host by
+    ``host_scalar``, and a tensor scale cast on the card, as
+    ``scalar_like`` casts it: the product in f32 of delta and the rounded
+    scale, rounded once, is the reference's for both."""
+    from repro_torch.kernels._route import host_scalar
+    jd, td = _delta(64, dtype, seed=22)
+    idx = np.arange(1, 64, 5, dtype=np.int32)
+    tidx = torch.as_tensor(idx)
+    want = _np(jgather_rows(jd, jnp.asarray(idx), value))
+    by_number = gather_rows(td, tidx, value)
+    by_tensor = gather_rows(td, tidx, torch.tensor(value))
+    rows = td.reshape(-1, 128)
+    by_value = (torch.index_select(rows, 0, tidx).float()
+                * host_scalar(value, td.dtype)).to(td.dtype).reshape(-1)
+    for got in (by_number, by_tensor, by_value):
+        np.testing.assert_array_equal(_np(got), want)
+
+
+# past f32's range (the scale is beta/|h_i|, so a gain near 0 gives one),
+# just below the halfway point to 2^128 (rounds to f32's largest value)
+# and just above it (rounds to inf)
+@pytest.mark.parametrize("value", [1e39, -1e39, 3.40282356e38,
+                                   3.4028236e38, -3.4028236e38])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_host_rounding_saturates_as_scalar_like(dtype, value):
+    """A number past f32's range is inf of its sign on the card's
+    by-value route and on the plain route, as the reference's cast gives
+    it; one that rounds to f32's largest value keeps it in f32."""
+    from repro_torch.kernels._route import host_scalar, scalar_like
+    tdtype = getattr(torch, dtype)
+    got = host_scalar(value, tdtype)
+    want = float(scalar_like(value, torch.empty(1, dtype=tdtype)))
+    assert got == want and np.signbit(got) == np.signbit(want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scalar_arg_passes_by_value_or_pointer(dtype):
+    """A number goes by value, rounded to the data's dtype; a tensor of
+    the data's dtype by its own pointer; an f32 tensor by its own pointer
+    where the kernel rounds f32 itself (flagged when the data is bf16),
+    else converted; any other dtype converted; two values refused."""
+    from repro_torch.kernels._route import host_scalar, scalar_arg
+    tdtype = getattr(torch, dtype)
+    t = torch.zeros((2, 128), dtype=tdtype)
+    value = 0.05 / 0.015
+    assert scalar_arg(value, t, "s") == (None, 0, host_scalar(value, tdtype))
+    same = torch.tensor([value], dtype=tdtype)
+    assert scalar_arg(same, t, "s") == (same, 0, 0.0)
+    f32 = torch.tensor(value)
+    assert scalar_arg(f32, t, "s", f32_ok=True) == (
+        f32, int(tdtype != torch.float32), 0.0)
+    s, is_f32, _ = scalar_arg(f32, t, "s")
+    assert is_f32 == 0 and s.dtype == tdtype
+    assert (s is f32) == (tdtype == torch.float32)
+    s, is_f32, _ = scalar_arg(f32.double(), t, "s", f32_ok=True)
+    assert is_f32 == 0 and s.dtype == tdtype
+    assert float(s) == host_scalar(value, tdtype)
+    with pytest.raises(ValueError, match="s must hold one value"):
+        scalar_arg(torch.ones(2), t, "s")
 
 
 def test_plain_entry_point_and_kernel_route_agree():
