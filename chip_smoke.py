@@ -69,11 +69,27 @@ Phases, each printing one JSON line:
    round without the package's scope under ``phase_device``'s flags (TF32
    off, nondeterministic algorithms allowed): whether that repeats, and
    what the deterministic algorithms cost in wall and device time.
-9. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
+9. ``femnist``: the paper's second experiment, PFELS on the full-width
+   ResNet-18 of FEMNIST (d = 11,189,886) with N = 1000 clients of 50
+   synthetic 1x28x28 images under a Dirichlet(0.5) label skew, drawn on
+   the card, 3 rounds at the main path's settings: s/round, peak memory,
+   the transmit kernels' launches (3 each), finite metrics and the
+   labels' skew; one more round twice from one state and key (bit-equal,
+   the second profiled: device idle share and time by kernel kind); one
+   local step's gradient, card against CPU.
+10. ``streamed``: the streamed bank against the resident one from the
+   same state and key, bit for bit: the main path's config (VGG-11,
+   N = 1000, 3 rounds; both runs' s/round and peak memory), and PFELS
+   with error feedback at BENCH_CNN_CIFAR's width.
+11. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
+   its own, with the reference's defaults for 10 rounds and at
+   population scale (streamed bank, 100,000 clients); its ``--out`` JSON
+   checked.
+12. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
    prefill and 8 greedy decode steps on the card (kernels) against the
    same params on the CPU (plain versions); and the reduced zamba2-2.7b's
    bf16 prefill, card against CPU, within 3% of max|logit|.
-10. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
+13. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
    width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
@@ -1866,6 +1882,353 @@ def phase_conv_parity():
         raise AssertionError("; ".join(failures))
 
 
+# ------------------------------------------------ the paper's second model
+
+# kernel names of csrc/pfels_transmit.cu as the profiler shows them
+TRANSMIT_KERNEL_NAMES = ("sumsq_partial_kernel", "sum_rows_kernel",
+                         "combine_kernel")
+
+
+def round_split(prof):
+    """A profiled FL round's device time by kernel name: cuDNN's
+    convolutions (its implicit-GEMM, Winograd, FFT and direct engines),
+    other GEMMs (the dense layer), the int64 element-wise ops (the PRNG's
+    threefry and index arithmetic; the models compute in f32), the two
+    PFELS transmit kernels, the rest."""
+    parts = {"convolutions": 0.0, "other_gemm": 0.0,
+             "int64_elementwise_prng": 0.0, "transmit_kernels": 0.0,
+             "other": 0.0}
+    calls = dict.fromkeys(parts, 0)
+    for ms, n, name in prof["all"]:
+        low = name.lower()
+        if any(t in low for t in TRANSMIT_KERNEL_NAMES):
+            part = "transmit_kernels"
+        elif any(t in low for t in ("conv", "cudnn", "implicit_gemm",
+                                    "dgrad", "wgrad", "fprop", "winograd",
+                                    "cf32")):
+            part = "convolutions"
+        elif "gemm" in low:
+            part = "other_gemm"
+        elif "<long" in low or "int64" in low:
+            part = "int64_elementwise_prng"
+        else:
+            part = "other"
+        parts[part] += ms
+        calls[part] += n
+    busy_ms = prof["device_busy_s"] * 1e3
+    return {k: {"device_ms": v, "calls": calls[k],
+                "share_of_device_time": v / busy_ms if busy_ms else None}
+            for k, v in parts.items()}
+
+
+def _label_skew(y, num_classes):
+    """How far each client's labels are from uniform: the mean over
+    clients of its largest class share and of its distinct classes."""
+    import torch
+    hist = torch.zeros((y.shape[0], num_classes), dtype=torch.int64,
+                       device=y.device)
+    hist.scatter_add_(1, y, torch.ones_like(y))
+    share = hist.float() / y.shape[1]
+    return {"mean_top_class_share": float(share.max(dim=1).values.mean()),
+            "mean_distinct_classes": float((hist > 0).sum(dim=1)
+                                           .float().mean()),
+            "global_top_class_share": float(hist.sum(0).max())
+            / y.numel()}
+
+
+def phase_femnist():
+    """The paper's second experiment (§8.1) through ``Trainer.run``: PFELS
+    with the default config on the full-width ResNet-18 of FEMNIST (d =
+    11,189,886), N = 1000 clients of 50 synthetic 1x28x28 images, 62
+    classes, Dirichlet(0.5) label skew, all drawn on the card; r = 32,
+    tau = 5, transmit clip 0.25, fused kernels, 3 rounds with the launch
+    counters zeroed just before and read just after. Then one more round
+    twice from the same state and key (bit-equal; the second under the
+    profiler: device busy time, idle share, time by kernel kind), and one
+    ``local_train`` step's gradient at this width on the card against the
+    CPU under PyTorch's default cuDNN flags (the package's scope must
+    hold it within ``CONV_GRAD_TOL`` of max|g|)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_RESNET18_FEMNIST, PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.data import make_federated_classification
+    from repro_torch.fl import Trainer
+    from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.models import cnn
+    from repro_torch.tree import ravel
+
+    cfg_m = PAPER_RESNET18_FEMNIST
+    rounds = 3
+    t0 = time.perf_counter()
+    params = cnn.init_cnn(prng.PRNGKey(0), cfg_m)
+    d = sum(p.numel() for p in params.values())
+    x, y, xt, yt = make_federated_classification(
+        prng.PRNGKey(0), n_clients=1000, per_client=50,
+        num_classes=cfg_m.num_classes, image_shape=(1, 28, 28), alpha=0.5)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = PFELSConfig(transmit_clip=0.25, use_fused_kernel=True,
+                      channel=scaled_channel(d))
+    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, cfg_m, b), params)
+    state = trainer.init(prng.PRNGKey(1))
+    kernel.reset_launch_counts()
+    end, metrics, stats = _fl_run(trainer, state, x, y, rounds)
+    launches = dict(kernel.LAUNCHES)
+    test_loss, test_acc = trainer.evaluate(end, xt, yt)
+    m = {k: [float(v) for v in metrics[k]] for k in metrics}
+    finite = all(math.isfinite(v) for vs in m.values() for v in vs) and \
+        bool(torch.isfinite(ravel(end.params)).all())
+
+    box = {}
+
+    def again():
+        box["out"] = trainer.step(end, x, y)
+
+    again()
+    first = box["out"]
+    prof = profile_call("one more ResNet-18 round (femnist)", again)
+    second = box["out"]
+    repeat_bit_equal = (
+        torch.equal(ravel(first[0].params), ravel(second[0].params))
+        and torch.equal(first[0].prev_delta, second[0].prev_delta)
+        and all(torch.equal(first[1][k], second[1][k]) for k in first[1]))
+
+    with _pytorch_cudnn_flags():
+        g_cpu, _ = _step_gradient(cfg_m, params, x[0], y[0], "cpu")
+        g_card, _ = _step_gradient(cfg_m, params, x[0], y[0], "cuda")
+    grad_gap = float((g_card - g_cpu).abs().max()) / float(g_cpu.abs().max())
+
+    line = {"phase": "femnist", "model": cfg_m.name, "d": d,
+            "k": int(m["subcarriers"][0]), "n_clients": cfg.num_clients,
+            "r": cfg.clients_per_round, "tau": cfg.local_steps,
+            "dirichlet_alpha": 0.5, "data_bytes": x.numel() * 4,
+            "label_skew": _label_skew(y, cfg_m.num_classes),
+            "setup_s": setup_s, "rounds": rounds, **stats,
+            "launches": launches,
+            "train_loss": m["train_loss"], "beta": m["beta"],
+            "energy": m["energy"], "eps_round": m["eps_round"],
+            "update_norm": m["update_norm"], "test_loss": test_loss,
+            "test_acc": test_acc, "finite": finite,
+            "repeat_round_bit_equal": repeat_bit_equal,
+            "profiled_round": {"wall_s": prof["wall_s"],
+                               "device_busy_s": prof["device_busy_s"],
+                               "device_idle_share":
+                                   prof["device_idle_share"],
+                               "split": round_split(prof)},
+            "step_gradient_gap_rel_to_max": grad_gap,
+            "tolerance": {"step_gradient": f"{CONV_GRAD_TOL} of max|g|"}}
+    emit(line)
+    failures = []
+    if d != 11_189_886:
+        failures.append(f"ResNet-18 has d={d}, expected 11,189,886")
+    if launches != {"client_sumsq": rounds, "fused_combine": rounds}:
+        failures.append(f"launched {launches} in {rounds} rounds")
+    if not finite:
+        failures.append("non-finite metric or params")
+    if not all(v <= cfg.epsilon for v in m["eps_round"]):
+        failures.append("eps_round above the per-round budget")
+    if not repeat_bit_equal:
+        failures.append("the ResNet-18 round does not repeat bit for bit")
+    if not grad_gap <= CONV_GRAD_TOL:
+        failures.append(f"the step gradient on the card is {grad_gap:.3g} "
+                        f"of max|g| off the CPU's")
+    # IID labels (50 draws over 62 classes) give a top share near 0.07
+    if not line["label_skew"]["mean_top_class_share"] > 0.1:
+        failures.append("the Dirichlet labels show no skew")
+    del x, y, xt, yt, end, state, trainer, first, second, box
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+# ------------------------------------------------------ the streamed bank
+
+def _fl_run(trainer, state, x, y, rounds):
+    """``trainer.run`` timed a round at a time on the host clock (each
+    round ends in a synchronisation), with the run's peak memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [time.perf_counter()]
+
+    def on_round(t, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    end, metrics = trainer.run(state, x, y, rounds=rounds, on_round=on_round)
+    torch.cuda.synchronize()
+    return end, metrics, {
+        "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _same_run(a, am, b, bm):
+    """Params, prev_delta, every metric, and the bank, bit for bit."""
+    import torch
+    from repro_torch.tree import ravel
+    same = {"params": torch.equal(ravel(a.params), ravel(b.params)),
+            "prev_delta": torch.equal(a.prev_delta, b.prev_delta),
+            "metrics": am.keys() == bm.keys() and all(
+                torch.equal(am[k], bm[k]) for k in am),
+            "lanes": torch.equal(a.bank.lanes.cpu(), b.bank.lanes.cpu()),
+            "counts": torch.equal(a.bank.counts.cpu(), b.bank.counts.cpu())}
+    if a.residuals is not None:
+        same["residuals"] = torch.equal(a.residuals.cpu(),
+                                        b.residuals.cpu())
+    return same
+
+
+def phase_streamed():
+    """``bank_backend="streamed"`` against ``"resident"`` from the same
+    state and key: the main path's config (VGG-11, N = 1000, 3 rounds;
+    the streamed run first, with the data only in pinned host memory and
+    the bank there too, then the resident one with the data on the card),
+    and PFELS with error feedback at BENCH_CNN_CIFAR's width (N = 100, so
+    that clients return and carry their residuals; the VGG-11 EF bank
+    would take 36.9 GB of pinned host memory). Params, prev_delta,
+    metrics, lanes, counts (and residuals) must be bit-equal."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import (BENCH_CNN_CIFAR, PAPER_VGG11_CIFAR10,
+                                     PFELSConfig)
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.data import ArraySource, make_federated_classification
+    from repro_torch.fl import Trainer
+    from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.models import cnn
+
+    failures = []
+    runs = (("vgg11", PAPER_VGG11_CIFAR10, 1000, {}, 3),
+            ("bench_cnn_ef", BENCH_CNN_CIFAR, 100,
+             {"error_feedback": True}, 3))
+    for label, cfg_m, n, extra, rounds in runs:
+        params = cnn.init_cnn(prng.PRNGKey(0), cfg_m)
+        d = sum(p.numel() for p in params.values())
+        size = cfg_m.image_size
+        x, y, _, _ = make_federated_classification(
+            prng.PRNGKey(0), n_clients=n, per_client=50, num_classes=10,
+            image_shape=(3, size, size))
+        source = ArraySource(x, y)
+        del x, y
+        torch.cuda.empty_cache()
+        lines = {}
+        out = {}
+        for backend in ("streamed", "resident"):
+            cfg = PFELSConfig(num_clients=n, transmit_clip=0.25,
+                              use_fused_kernel=True,
+                              channel=scaled_channel(d),
+                              bank_backend=backend, **extra)
+            trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, cfg_m, b),
+                              params)
+            state = trainer.init(prng.PRNGKey(1))
+            kernel.reset_launch_counts()
+            if backend == "streamed":
+                end, metrics, stats = _fl_run(trainer, state, source, None,
+                                              rounds)
+            else:
+                x, y = source.x.cuda(), source.y.cuda()
+                end, metrics, stats = _fl_run(trainer, state, x, y, rounds)
+                del x, y
+            stats["launches"] = dict(kernel.LAUNCHES)
+            stats["bank_device"] = str(end.bank.counts.device)
+            lines[backend] = stats
+            out[backend] = (end, metrics)
+            del trainer, state
+        same = _same_run(*out["streamed"], *out["resident"])
+        end, metrics = out["streamed"]
+        counts = end.bank.counts
+        line = {"phase": "streamed", "run": label, "model": cfg_m.name,
+                "d": d, "n_clients": n, "r": cfg.clients_per_round,
+                "rounds": rounds, **extra,
+                "bit_equal": same, "streamed": lines["streamed"],
+                "resident": lines["resident"],
+                "clients_seen_twice": int((counts >= 2).sum()),
+                "train_loss": [float(v) for v in metrics["train_loss"]],
+                "finite": all(bool(torch.isfinite(v).all())
+                              for v in metrics.values())}
+        emit(line)
+        if not all(same.values()):
+            failures.append(f"{label}: streamed and resident differ: {same}")
+        if not line["finite"]:
+            failures.append(f"{label}: non-finite metric")
+        if lines["streamed"]["bank_device"] != "cpu":
+            failures.append(f"{label}: the streamed bank is not on the host")
+        want = rounds if not extra else 0
+        if lines["streamed"]["launches"]["fused_combine"] != rounds or \
+                lines["streamed"]["launches"]["client_sumsq"] != want:
+            failures.append(f"{label}: launched "
+                            f"{lines['streamed']['launches']}")
+        if extra and not line["clients_seen_twice"]:
+            failures.append(f"{label}: no client came back, so no residual "
+                            f"was carried")
+        del out, end, metrics, source
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# ------------------------------------------------- the training entry point
+
+TRAIN_CLI_RUNS = (
+    ("defaults", ["--rounds", "10", "--eval-every", "5"]),
+    ("population", ["--model", "cnn", "--bank", "streamed", "--clients",
+                    "100000", "--rounds", "3", "--eval-every", "3"]),
+)
+
+
+def phase_train_cli():
+    """``python -m repro_torch.launch.train`` as a user runs it, in a
+    process of its own: the reference's defaults for 10 rounds, and the
+    population-scale use (BENCH_CNN_CIFAR, streamed bank, 100,000 clients
+    made on demand). Each run's ``--out`` JSON (under ``experiments/``)
+    must hold finite losses, accuracies in [0, 1] and the privacy
+    totals."""
+    out_dir = os.path.join(ROOT, "experiments", "train_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    failures = []
+    for label, argv in TRAIN_CLI_RUNS:
+        path = os.path.join(out_dir, f"train_cli_{label}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv,
+             "--out", path], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI {label} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        with open(path) as f:
+            out = json.load(f)
+        hist = out["history"]
+        priv = out["privacy"]
+        healthy = {
+            "finite_losses": all(math.isfinite(h["train_loss"])
+                                 for h in hist),
+            "accuracies_in_unit_interval": all(0.0 <= h["test_acc"] <= 1.0
+                                               for h in hist),
+            "privacy_totals": all(
+                k in priv for k in ("per_round_eps_max",
+                                    "basic_composition",
+                                    "advanced_composition"))
+            and all(math.isfinite(v) for v in priv["basic_composition"]),
+            "all_rounds": hist[-1]["round"] == out["config"]["rounds"] - 1}
+        emit({"phase": "train_cli", "run": label, "argv": argv,
+              "process_wall_s": wall, "train_wall_s": out["wall_s"],
+              "config": out["config"], "history": hist,
+              "energy_total": out["energy_total"], "privacy": priv,
+              "healthy": healthy,
+              "stdout_tail": proc.stdout.strip().splitlines()[-3:]})
+        if not all(healthy.values()):
+            failures.append(f"{label}: {healthy}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2189,6 +2552,9 @@ def main(argv=None) -> int:
     phase_baselines(args.profile)
     phase_parity()
     phase_conv_parity()
+    phase_femnist()
+    phase_streamed()
+    phase_train_cli()
     phase_serve_parity()
     launches.update(phase_serve(args.profile))
     phase_serve_parity_bf16()

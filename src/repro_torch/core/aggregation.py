@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import channel as chan
+from repro_torch.core.clipping import row_norms
 from repro_torch.core.compressors import base as comp_base
 from repro_torch.kernels.pfels_transmit import ref as transmit_ref
 
@@ -85,7 +86,7 @@ def dp_fedavg_aggregate(updates_flat, clip: float, sigma: float, noise_key,
     one ``normal`` of size d. The noise std is f32(C sigma) / sqrt(f32 r),
     the order and types the reference's weak-typed scalars give."""
     dev = updates_flat.device
-    norms = torch.linalg.vector_norm(updates_flat, dim=1, keepdim=True)
+    norms = row_norms(updates_flat)[:, None]
     clipped = updates_flat / torch.clamp_min(norms / clip, 1.0)
     std = (torch.tensor(clip * sigma, dtype=torch.float32, device=dev)
            / torch.sqrt(torch.tensor(float(r), dtype=torch.float32,

@@ -56,6 +56,12 @@ def get_channel_model(name: str) -> ChannelModel:
             f"{sorted(_REGISTRY)}): ROADMAP Queue 1, item 9") from None
 
 
+def list_channel_models():
+    """The ported models' names (the reference's others wait for ROADMAP
+    Queue 1, item 9)."""
+    return sorted(_REGISTRY)
+
+
 def effective_noise_std(cfg: ChannelConfig) -> float:
     return float(get_channel_model(cfg.model).noise_std(cfg))
 

@@ -79,5 +79,11 @@ def get_compressor(name: str) -> Compressor:
             f"{sorted(_REGISTRY)}): ROADMAP Queue 1, item 10") from None
 
 
+def list_compressors():
+    """The ported compressors' names (the reference's others wait for
+    ROADMAP Queue 1, item 10)."""
+    return sorted(_REGISTRY)
+
+
 def sensitivity_factor(cfg, d: Optional[int] = None) -> float:
     return float(get_compressor(cfg.compressor).sensitivity(cfg, d))

@@ -1,9 +1,12 @@
 """Synthetic federated datasets: class-prototype images plus Gaussian
-noise, split IID over the clients (port of ``repro/data/synthetic.py``).
+noise, split IID or with a Dirichlet label skew over the clients, or
+generated client by client on demand for populations too large to hold
+(port of ``repro/data/synthetic.py``).
 
 Everything is drawn on ``device`` with the port's threefry, so the same
-key gives the reference's labels exactly and its images to the ``normal``
-gap (``repro_torch.prng``).
+key gives the reference's IID labels exactly and its images to the
+``normal`` gap (``repro_torch.prng``); the Dirichlet branch's labels to
+the gap of ``prng.dirichlet`` (``tests/test_torch_data.py``).
 """
 from __future__ import annotations
 
@@ -12,12 +15,21 @@ from typing import Union
 import torch
 
 from repro_torch import prng
+from repro_torch.data import loader
 
 Device = Union[str, torch.device]
 
 
 def make_prototypes(key, num_classes: int, image_shape, scale: float = 1.0):
     return scale * prng.normal(key, (num_classes,) + tuple(image_shape))
+
+
+def _test_set(kt, protos, num_classes: int, shape, noise: float):
+    n_test = max(num_classes * 20, 200)
+    yt = prng.randint(kt, (n_test,), 0, num_classes)
+    xt = prng.normal(prng.fold_in(kt, 1), (n_test,) + shape)
+    xt.mul_(noise).add_(protos[yt])
+    return xt, yt
 
 
 def make_federated_classification(
@@ -27,24 +39,56 @@ def make_federated_classification(
     """Returns (x (N, n, C, H, W) f32, y (N, n) int64, test_x, test_y), all
     on ``device``.
 
-    alpha=None draws labels IID; the Dirichlet label-skew branch is not
-    ported yet (ROADMAP Queue 1, item 2)."""
-    if alpha is not None:
-        raise NotImplementedError(
-            "Dirichlet label skew (alpha) is not ported yet: ROADMAP "
-            "Queue 1, item 2")
+    alpha=None draws labels IID; else each client's class distribution
+    is Dirichlet(alpha) and its labels are drawn from it, one ``choice``
+    a client keyed by ``split(kl, N)`` (the same ``kl`` as the Dirichlet
+    draw, as the reference does)."""
     key = key.to(device)
     kp, kl, kn, kt = prng.split(key, 4)
-    protos = make_prototypes(kp, num_classes, image_shape)
+    shape = tuple(image_shape)
+    protos = make_prototypes(kp, num_classes, shape)
 
-    y = prng.randint(kl, (n_clients, per_client), 0, num_classes)
+    if alpha is None:
+        y = prng.randint(kl, (n_clients, per_client), 0, num_classes)
+    else:
+        probs = prng.dirichlet(
+            kl, torch.full((num_classes,), float(alpha), device=key.device),
+            (n_clients,))
+        y = prng.choice(prng.split(kl, n_clients), num_classes,
+                        (per_client,), p=probs)
     # noise * normal + protos[y], built in place: the noise draw is the
     # largest tensor (614 MB at the paper's CIFAR size)
-    x = prng.normal(kn, (n_clients, per_client) + tuple(image_shape))
+    x = prng.normal(kn, (n_clients, per_client) + shape)
     x.mul_(noise).add_(protos[y])
 
-    n_test = max(num_classes * 20, 200)
-    yt = prng.randint(kt, (n_test,), 0, num_classes)
-    xt = prng.normal(prng.fold_in(kt, 1), (n_test,) + tuple(image_shape))
-    xt.mul_(noise).add_(protos[yt])
+    xt, yt = _test_set(kt, protos, num_classes, shape, noise)
     return x, y, xt, yt
+
+
+def make_population_source(key, *, n_clients: int, per_client: int,
+                           num_classes: int = 10, image_shape=(1, 8, 8),
+                           noise: float = 0.6, device: Device = "cuda"):
+    """A population whose client ``i`` draws its samples on demand from
+    ``fold_in(kc, i)`` (split into a label and a noise key), the same
+    prototype-plus-noise family as :func:`make_federated_classification`;
+    no (n, samples, ...) tensor exists, so n can be 100,000 or more.
+
+    Returns ``(source, test_x, test_y)``: ``source`` is a
+    :class:`repro_torch.data.loader.ClientFnSource` whose ``cohort(sel)``
+    draws the selected clients' data on ``device``, the whole cohort at
+    once. The same client always serves the same samples."""
+    key = key.to(device)
+    kp, kc, kt = prng.split(key, 3)
+    shape = tuple(image_shape)
+    protos = make_prototypes(kp, num_classes, shape)
+
+    def cohort(sel):
+        ck = prng.fold_in(kc, torch.as_tensor(sel))
+        lanes = prng.split(ck)
+        y = prng.randint(lanes[:, 0], (per_client,), 0, num_classes)
+        x = prng.normal(lanes[:, 1], (per_client,) + shape)
+        x.mul_(noise).add_(protos[y])
+        return x, y
+
+    xt, yt = _test_set(kt, protos, num_classes, shape, noise)
+    return loader.ClientFnSource(cohort, n_clients), xt, yt

@@ -63,6 +63,10 @@ def get_algorithm(name: str) -> Algorithm:
                        f"{sorted(_REGISTRY)}") from None
 
 
+def list_algorithms():
+    return sorted(_REGISTRY)
+
+
 def _dp_epsilon_spend(cfg: PFELSConfig, beta, d=None, *,
                       compressed: bool = True):
     """Per-round eps consumed (Thm 3 inverse) for the realized beta,

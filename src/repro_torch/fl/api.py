@@ -8,6 +8,11 @@ update ``prev_delta`` (which ``randk_mode="server_topk"`` selects from),
 the PRNG key the next call consumes, the round counter, the privacy
 ledger and the channel-model carry.
 
+``cfg.bank_backend`` selects where the bank lives: ``resident`` (device
+tensors) or ``streamed`` (host memory, with the cohort's data made or
+copied in by ``data.loader.prefetch_cohorts`` while the round before
+computes). The two give bit-equal runs under the same key.
+
 PRNG contract (the reference's): ``init(key)`` draws the power limits from
 ``key`` and forks the run stream ``fold_in(key, 0x5047)`` and the channel
 stream ``fold_in(key, 0x4348)``. ``step`` uses ``state.key`` whole as the
@@ -25,6 +30,7 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import PFELSConfig
 from repro_torch.core import channels, privacy
+from repro_torch.data import loader
 from repro_torch.fl import algorithms, rounds
 from repro_torch.fl import bank as bank_lib
 from repro_torch.tree import Params, Unravel
@@ -62,7 +68,8 @@ class Trainer:
     raise ``NotImplementedError`` here. With ``cfg.error_feedback`` the
     bank's (N, d) residual memory is updated in place
     (``bank.ResidentBank``), so a state cannot be rerun once a later
-    state was made from it.
+    state was made from it. The streamed bank clones its host state once
+    per ``run`` or ``step`` call, so there a state can be rerun.
     """
 
     def __init__(self, cfg: PFELSConfig, loss_fn: Callable,
@@ -78,8 +85,9 @@ class Trainer:
                                  for n, t in params_template.items()}
         self.unravel = Unravel(self._params_template)
         self.d = self.unravel.d
-        self.bank = bank_lib.ResidentBank(cfg.num_clients, self.d,
-                                          cfg.error_feedback, self.device)
+        self.bank = bank_lib.make_bank(cfg.bank_backend, cfg.num_clients,
+                                       self.d, cfg.error_feedback,
+                                       self.device)
         self._cohort_core = rounds.build_cohort_core(
             cfg, loss_fn, self.d, self.unravel)
 
@@ -144,23 +152,41 @@ class Trainer:
             prev_delta=prev_delta, key=prng.fold_in(state.key, n),
             round=state.round + n, ledger=ledger, chan=chan)
 
-    def step(self, state: TrainState, data_x, data_y):
+    def step(self, state: TrainState, data_x, data_y=None):
         """One round with ``state.key`` as the round key."""
+        if self.bank.backend == "streamed":
+            return self._streamed_step(state, data_x, data_y)
         params, metrics, bank, delta_hat, chan, ledger = self._bank_round(
             state.params, state.power_limits, state.bank, state.prev_delta,
             state.chan, state.ledger, data_x, data_y, state.key)
         return self._advance(state, 1, params, bank, delta_hat, ledger,
                              chan), metrics
 
-    def run(self, state: TrainState, data_x, data_y,
+    def run(self, state: TrainState, data_x, data_y=None,
             rounds: Optional[int] = None,
             on_round: Optional[Callable[[int, Dict], None]] = None):
         """T rounds (T defaults to ``cfg.rounds``) as a Python loop over the
         round keys ``split(state.key, T)``. Returns ``(state, metrics)``
         with every metric stacked over the T rounds. ``on_round(t,
         metrics)``, if given, is called after each round (progress,
-        per-round timing)."""
+        per-round timing).
+
+        Under the ``resident`` bank ``data_x``/``data_y`` are the
+        population's (N, samples, ...) tensors on the device. Under
+        ``streamed`` they may be tensors anywhere (kept in host memory) or
+        a :class:`repro_torch.data.loader.CohortSource` with ``data_y``
+        None, and only (r, ...) slices reach the device."""
         t = self.cfg.rounds if rounds is None else int(rounds)
+        if self.bank.backend == "streamed":
+            if t < 1:
+                raise ValueError("run(rounds=0) is not meaningful with the "
+                                 "streamed bank; call with rounds >= 1")
+            source = loader.as_cohort_source(data_x, data_y)
+            params, metrics, bank, prev, chan, ledger = \
+                self._streamed_rounds(state, source,
+                                      prng.split(state.key, t), on_round)
+            return self._advance(state, t, params, bank, prev, ledger,
+                                 chan), metrics
         params, bank, prev = state.params, state.bank, state.prev_delta
         ledger, chan = state.ledger, state.chan
         per_round = []
@@ -175,6 +201,64 @@ class Trainer:
                    for k in per_round[0]} if per_round else {}
         return self._advance(state, t, params, bank, prev, ledger,
                              chan), stacked
+
+    # ------------------------------------------------- streamed execution
+
+    def _streamed_rounds(self, state: TrainState, source, round_keys,
+                         on_round=None):
+        """``len(round_keys)`` rounds with the bank in host memory: every
+        round's cohort is sampled up front, the cohorts are prefetched,
+        and only their data and residual slices move to the device (and
+        the slices back). The bank is cloned once a call, so the O(N d)
+        copy spreads over the call's rounds: prefer ``run(rounds=T)`` to a
+        loop of ``step``."""
+        cfg = self.cfg
+        n, r = cfg.num_clients, cfg.clients_per_round
+        if getattr(source, "n", n) != n:
+            raise ValueError(
+                f"cohort source serves {source.n} clients but "
+                f"cfg.num_clients={n}: Alg. 2 line 2 samples from "
+                f"cfg.num_clients, so a mismatched source would truncate "
+                f"the population (and the Thm 2 r/n accounting)")
+        lanes_of = rounds.ROUND_KEY_LANES
+        ks_all = [rounds.split_round_key(k) for k in round_keys]
+        sels = torch.stack([rounds.sample_cohort(ks[lanes_of["selection"]],
+                                                 n, r) for ks in ks_all])
+        sels_host = sels.cpu()
+
+        bank = self.bank.clone(state.bank)
+        params, prev, ledger = state.params, state.prev_delta, state.ledger
+        chan = state.chan
+        per_round = []
+        cohorts = loader.prefetch_cohorts(source, sels_host,
+                                          device=self.device)
+        for ti, (cx, cy) in enumerate(cohorts):
+            sel, ks = sels[ti], ks_all[ti]
+            res_sel = self.bank.gather(bank, sels_host[ti])
+            if res_sel is not None:
+                res_sel = res_sel.to(self.device, non_blocking=True)
+            params, metrics, new_res_sel, prev, chan = self._cohort_core(
+                params, state.power_limits[sel], cx, cy, ks, res_sel, prev,
+                chan, sel)
+            ledger, metrics = self._spend(ledger, metrics)
+            lanes = bank_lib.cohort_lane_keys(ks[lanes_of["bank"]], sel)
+            bank = self.bank.scatter(bank, sels_host[ti], new_res_sel, lanes)
+            per_round.append(metrics)
+            if on_round is not None:
+                on_round(ti, metrics)
+        stacked = {k: torch.stack([m[k] for m in per_round])
+                   for k in per_round[0]}
+        return params, stacked, bank, prev, chan, ledger
+
+    def _streamed_step(self, state: TrainState, data_x, data_y=None):
+        """Streamed ``step``: ``state.key`` whole is the round key, as in
+        the resident ``step``."""
+        source = loader.as_cohort_source(data_x, data_y)
+        params, metrics, bank, prev, chan, ledger = self._streamed_rounds(
+            state, source, state.key[None])
+        metrics = {k: v[0] for k, v in metrics.items()}
+        return self._advance(state, 1, params, bank, prev, ledger,
+                             chan), metrics
 
     # ------------------------------------------------------- conveniences
 

@@ -1,17 +1,26 @@
-"""ClientBank: per-client persistent state (port of the resident backend
-of ``repro/fl/bank.py``): the error-feedback residual memory (N, d) f32
-when ``cfg.error_feedback`` is set, each client's latest PRNG lane key
-(``fold_in(ks[5], client_id)``) and its participation count. The
-streamed backend (ROADMAP Queue 1, item 8) is not ported yet;
-``rounds.check_ported`` refuses it."""
+"""ClientBank: per-client persistent state (port of ``repro/fl/bank.py``):
+the error-feedback residual memory (N, d) f32 when ``cfg.error_feedback``
+is set, each client's latest PRNG lane key (``fold_in(ks[5],
+client_id)``) and its participation count.
+
+Two backends share one interface:
+
+- ``resident``: dense tensors on the Trainer's device.
+- ``streamed``: the bank stays in host memory (pinned where the Trainer
+  runs on a card); only the sampled cohort's (r, .) slices move to the
+  device and back each round. Device memory is then independent of N,
+  and the two backends give bit-equal runs under the same key.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch import prng
+
+BACKENDS = ("resident", "streamed")
 
 
 @dataclass
@@ -75,3 +84,76 @@ class ResidentBank:
         new_counts = bank.counts.clone()
         new_counts[sel] += 1
         return BankState(residuals=res, lanes=new_lanes, counts=new_counts)
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(t)
+
+
+class StreamedBank:
+    """The bank in host memory: ``gather`` hands out the cohort's (r, d)
+    residual rows (in pinned memory when the Trainer runs on a card, so
+    their copy to the card can run asynchronously) and ``scatter`` writes
+    the updated rows, lanes and counts back in place. The Trainer clones
+    the bank once per ``run`` (:meth:`clone`), so a caller's state stays
+    valid."""
+
+    backend = "streamed"
+
+    def __init__(self, n: int, d: int, error_feedback: bool,
+                 device: Union[str, torch.device] = "cuda"):
+        self.n, self.d, self.error_feedback = n, d, error_feedback
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
+
+    def init(self) -> BankState:
+        return BankState(
+            residuals=(torch.zeros((self.n, self.d), dtype=torch.float32,
+                                   pin_memory=self.pin)
+                       if self.error_feedback else None),
+            lanes=torch.zeros((self.n, 2), dtype=torch.int64,
+                              pin_memory=self.pin),
+            counts=torch.zeros((self.n,), dtype=torch.int32,
+                               pin_memory=self.pin))
+
+    def gather(self, bank: BankState, sel) -> Optional[torch.Tensor]:
+        """The cohort's (r, d) residual rows on the host, or None without
+        EF."""
+        if bank.residuals is None:
+            return None
+        sel = torch.as_tensor(sel).cpu().long()
+        out = torch.empty((sel.numel(), self.d), dtype=torch.float32,
+                          pin_memory=self.pin)
+        return torch.index_select(bank.residuals, 0, sel, out=out)
+
+    def scatter(self, bank: BankState, sel, new_residuals,
+                lanes) -> BankState:
+        """Write the cohort's rows, lane keys and counts back in place.
+        ``sel`` must be unique, as for the resident bank."""
+        sel = torch.as_tensor(sel).cpu().long()
+        if bank.residuals is not None and new_residuals is not None:
+            if torch.unique(sel).numel() != sel.numel():
+                raise ValueError("the cohort repeats a client: its "
+                                 "residual rows would overwrite each other")
+            bank.residuals[sel] = new_residuals.cpu()
+        bank.lanes[sel] = lanes.cpu()
+        bank.counts[sel] += 1
+        return bank
+
+    def clone(self, bank: BankState) -> BankState:
+        return BankState(
+            residuals=(None if bank.residuals is None
+                       else _host_copy(bank.residuals, self.pin)),
+            lanes=_host_copy(bank.lanes, self.pin),
+            counts=_host_copy(bank.counts, self.pin))
+
+
+def make_bank(backend: str, n: int, d: int, error_feedback: bool,
+              device: Union[str, torch.device] = "cuda"):
+    """Backend factory keyed by ``PFELSConfig.bank_backend``."""
+    if backend == "resident":
+        return ResidentBank(n, d, error_feedback, device)
+    if backend == "streamed":
+        return StreamedBank(n, d, error_feedback, device)
+    raise ValueError(f"unknown bank backend {backend!r}; "
+                     f"choose from {BACKENDS}")

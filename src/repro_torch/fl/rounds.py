@@ -17,6 +17,7 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import PFELSConfig
 from repro_torch.core import aggregation, channel, channels, compressors
+from repro_torch.core.clipping import row_norms
 from repro_torch.fl import algorithms
 from repro_torch.fl.client import local_train
 from repro_torch.kernels.pfels_transmit import ref as transmit_ref
@@ -56,8 +57,6 @@ def check_ported(cfg: PFELSConfig) -> None:
     ROADMAP item that will bring it; nothing silently runs something
     else."""
     todo = []
-    if cfg.bank_backend != "resident":
-        todo.append((f"bank_backend={cfg.bank_backend!r}", 8))
     if cfg.channel.model != "block_fading":
         todo.append((f"channel.model={cfg.channel.model!r}", 9))
     if cfg.compressor != "rand_k":
@@ -147,8 +146,7 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
             flat_updates += res_sel
         metrics: Dict[str, torch.Tensor] = {
             "train_loss": torch.mean(losses),
-            "update_norm": torch.mean(
-                torch.linalg.vector_norm(flat_updates, dim=1)),
+            "update_norm": torch.mean(row_norms(flat_updates)),
             "r_realized": channels.realized_cohort_size(cr, r),
         }
 

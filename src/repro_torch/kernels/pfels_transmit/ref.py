@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch import prng
+from repro_torch.core.clipping import row_norms
 
 
 def dense_noise_and_mask(idx: torch.Tensor, noise_key, sigma0: float,
@@ -62,8 +63,7 @@ def clip_scales(updates: torch.Tensor, clip: Optional[float]
     if clip is None:
         return torch.ones((updates.shape[0],), dtype=torch.float32,
                           device=updates.device)
-    return scales_from_norms(torch.linalg.vector_norm(updates.float(),
-                                                      dim=1), clip)
+    return scales_from_norms(row_norms(updates), clip)
 
 
 def effective_gains(gains: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,16 @@
 """The paper's CNN families in torch (port of ``repro/models/cnn.py``):
-the modified VGG-11 of CIFAR-10 and the benchmark MLP.
+the modified VGG-11 of CIFAR-10, the modified ResNet-18 of FEMNIST and
+the benchmark MLP.
 
 Layouts are the reference's: images NCHW, conv weights OIHW, dense
-weights (in, out). The reference's SAME 3x3 stride-1 conv is
-``padding=1`` and its 2x2 VALID max pool is ``max_pool2d(2)``. The
-``resnet`` family waits: the reference's SAME padding at stride 2 pads
-(0, 1), which ``padding=1`` does not.
+weights (in, out). The reference's 2x2 VALID max pool is
+``max_pool2d(2)``. Its SAME padding is XLA's: a total of
+``max((ceil(n / s) - 1) s + k - n, 0)`` pixels a side pair, the odd one
+going high. At stride 1 that is ``padding=1`` for a 3x3 kernel, but at
+stride 2 it depends on the size's parity: (0, 1) for an even n, (1, 1)
+for an odd one (FEMNIST's 28 -> 14 -> 7 -> 4 pads (0, 1), (0, 1), then
+(1, 1)), and nothing for the 1x1 projection. :func:`_conv` pads
+explicitly from the size.
 
 The reference computes in f32 and gives the same result from run to run.
 On the card cuDNN would round convolution inputs to TF32 (PyTorch's
@@ -35,10 +40,29 @@ def _conv_init(key, cin, cout, ksize):
     return w * math.sqrt(2.0 / fan_in)
 
 
-def _resnet_not_ported():
-    return NotImplementedError(
-        "arch='resnet' is not ported yet (its stride-2 SAME padding is "
-        "asymmetric): ROADMAP Queue 1, item 3")
+def _same_pads(n: int, k: int, stride: int):
+    """XLA's SAME padding of one spatial dim: (low, high)."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
+    """The reference's SAME ``conv_general_dilated`` (NCHW, OIHW)."""
+    k = w.shape[-1]
+    ph = _same_pads(x.shape[-2], k, stride)
+    pw = _same_pads(x.shape[-1], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
+    return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w,
+                    stride=stride)
+
+
+def resnet_widths(cfg: CNNConfig):
+    return [max(int(c * cfg.width_mult), 8) for c in (64, 128, 256, 512)]
+
+
+def _block_stride(si: int, bi: int) -> int:
+    return 2 if (si > 0 and bi == 0) else 1
 
 
 def _in_leaf_order(params: Params) -> Params:
@@ -84,7 +108,24 @@ def init_cnn(key, cfg: CNNConfig, device: Union[str, torch.device] = "cuda"
                            * math.sqrt(1 / feat))
         params["out.b"] = zeros(cfg.num_classes)
         return _in_leaf_order(params)
-    raise _resnet_not_ported()
+    # resnet-18-ish: stem + 4 stages of 2 basic blocks; keys in the
+    # reference's order (stem, then c1, c2, proj a block, then out.w)
+    widths = resnet_widths(cfg)
+    cin = cfg.in_channels
+    params["stem"] = _conv_init(next(ks), cin, widths[0], 3)
+    cin = widths[0]
+    for si, cout in enumerate(widths):
+        for bi in range(2):
+            pre = f"stages.{si}.{bi}."
+            params[pre + "c1"] = _conv_init(next(ks), cin, cout, 3)
+            params[pre + "c2"] = _conv_init(next(ks), cout, cout, 3)
+            if _block_stride(si, bi) != 1 or cin != cout:
+                params[pre + "proj"] = _conv_init(next(ks), cin, cout, 1)
+            cin = cout
+    params["out.w"] = (prng.normal(next(ks), (cin, cfg.num_classes))
+                       * math.sqrt(1 / cin))
+    params["out.b"] = zeros(cfg.num_classes)
+    return _in_leaf_order(params)
 
 
 def f32_convs():
@@ -119,7 +160,19 @@ def apply_cnn(params: Params, cfg: CNNConfig, images: torch.Tensor):
                     ci += 1
         x = x.reshape(x.shape[0], -1)
         return x @ params["out.w"] + params["out.b"]
-    raise _resnet_not_ported()
+    with f32_convs():
+        x = torch.relu(_conv(x, params["stem"]))
+        for si in range(4):
+            for bi in range(2):
+                pre = f"stages.{si}.{bi}."
+                stride = _block_stride(si, bi)
+                h = torch.relu(_conv(x, params[pre + "c1"], stride))
+                h = _conv(h, params[pre + "c2"])
+                sc = (_conv(x, params[pre + "proj"], stride)
+                      if pre + "proj" in params else x)
+                x = torch.relu(h + sc)
+    x = torch.mean(x, dim=(2, 3))
+    return x @ params["out.w"] + params["out.b"]
 
 
 def cnn_loss(params: Params, cfg: CNNConfig, batch):

@@ -9,7 +9,9 @@ the gains, the receiver noise, the minibatch indices and the init.
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words
 (``torch.uint32`` lacks most ops, so every word op masks with
 ``0xFFFFFFFF``). Keys are passed explicitly; nothing is global. All ops
-are plain tensor ops on the key's device.
+are plain tensor ops on the key's device. The samplers also take a batch
+of keys of shape (M, 2) and then draw as ``jax.vmap`` over the keys
+would: one row a key.
 
 What is exact and what is not:
 
@@ -19,6 +21,12 @@ What is exact and what is not:
 - ``uniform`` with a range other than [0, 1) and the erfinv polynomial
   round ``a * b + c`` once, as XLA's CPU backend fuses them into FMAs
   (:func:`fma_f32`).
+- ``gamma``, ``loggamma`` and ``dirichlet`` follow JAX's Marsaglia-Tsang
+  code step for step (a key per element, the same rejection loops); they
+  inherit the ``normal`` and ``log`` gaps below, and a rejection test
+  that flips on one of them changes a whole sample. How close they come
+  is measured in ``tests/test_torch_prng.py``. ``choice`` with ``p``
+  adds a ``cumsum`` whose sums XLA orders its own way.
 - ``normal`` goes through XLA's f32 erfinv polynomial (Giles), ported
   op for op below; ``torch.log1p`` differs from XLA's ``log1p`` in the
   last ulp for some inputs, which leaves a gap of a few ulp on about one
@@ -72,10 +80,17 @@ def _threefry2x32(k1, k2, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def _key_words(key: torch.Tensor):
-    if key.shape != (2,) or key.dtype != torch.int64:
-        raise ValueError(f"expected one key: int64 tensor of shape (2,), got "
-                         f"{key.dtype} {tuple(key.shape)}")
-    return key[0], key[1]
+    """The two words of one key (shape (2,)), or the (M, 1) word columns
+    of a batch of keys (shape (M, 2)), which draws as ``jax.vmap`` over
+    the keys would."""
+    if key.dtype != torch.int64 or key.ndim not in (1, 2) \
+            or key.shape[-1] != 2:
+        raise ValueError(f"expected a key (int64, shape (2,)) or a batch of "
+                         f"keys (shape (M, 2)), got {key.dtype} "
+                         f"{tuple(key.shape)}")
+    if key.ndim == 1:
+        return key[0], key[1]
+    return key[:, 0:1], key[:, 1:2]
 
 
 def _hash_counts(key: torch.Tensor, n: int,
@@ -85,12 +100,15 @@ def _hash_counts(key: torch.Tensor, n: int,
     halved into pairs (i, i + ceil(n/2)) (an odd n pads the second half
     with a 0 count), hashed, and the two output halves concatenated.
     ``transform`` maps each chunk of uint32 words (int64) to the output
-    dtype, so a large float draw never holds all of its bits at once."""
+    dtype, so a large float draw never holds all of its bits at once.
+    A batch of M keys gives (M, n), each row its key's draw."""
     k1, k2 = _key_words(key)
+    lead = key.shape[:-1]
     half = (n + 1) // 2
-    out = torch.empty((n,), dtype=dtype, device=key.device)
-    for a in range(0, half, CHUNK):
-        b = min(half, a + CHUNK)
+    step = max(1, CHUNK // max(1, math.prod(lead)))
+    out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
+    for a in range(0, half, step):
+        b = min(half, a + step)
         x0 = torch.arange(a, b, dtype=torch.int64, device=key.device)
         x1 = x0 + half
         if b + half > n:            # the padded count of an odd n
@@ -98,9 +116,9 @@ def _hash_counts(key: torch.Tensor, n: int,
         o0, o1 = _threefry2x32(k1, k2, x0, x1)
         if transform is not None:
             o0, o1 = transform(o0), transform(o1)
-        out[a:b] = o0
+        out[..., a:b] = o0
         hi = min(n, half + b)
-        out[half + a:hi] = o1[:hi - half - a]
+        out[..., half + a:hi] = o1[..., :hi - half - a]
     return out
 
 
@@ -124,8 +142,9 @@ def key_from_words(words, device: Union[str, torch.device] = "cuda"
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: (num, 2) keys."""
-    return _hash_counts(key, 2 * int(num)).reshape(int(num), 2)
+    """``jax.random.split``: (num, 2) keys; (M, num, 2) for M keys."""
+    return _hash_counts(key, 2 * int(num)).reshape(
+        key.shape[:-1] + (int(num), 2))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -144,9 +163,10 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 
 def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.bits`` (32-bit): uint32 values in an int64 tensor."""
+    """``jax.random.bits`` (32-bit): uint32 values in an int64 tensor.
+    A batch of M keys gives (M,) + shape."""
     shape = _shape(shape)
-    return _hash_counts(key, math.prod(shape)).reshape(shape)
+    return _hash_counts(key, math.prod(shape)).reshape(key.shape[:-1] + shape)
 
 
 # --------------------------------------------------------------- samplers
@@ -183,11 +203,11 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     shape = _shape(shape)
     if minval == 0.0 and maxval == 1.0:
         u = _hash_counts(key, math.prod(shape), _bits_to_unit, torch.float32)
-        return u.reshape(shape)
-    u = _hash_counts(key, math.prod(shape),
-                     lambda b: _affine(_bits_to_unit(b), minval, maxval),
-                     torch.float32)
-    return u.reshape(shape)
+    else:
+        u = _hash_counts(key, math.prod(shape),
+                         lambda b: _affine(_bits_to_unit(b), minval, maxval),
+                         torch.float32)
+    return u.reshape(key.shape[:-1] + shape)
 
 
 # XLA's f32 erfinv (Giles, "Approximating the erfinv function"), as the
@@ -218,6 +238,39 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+# XLA's CPU f32 log: Cephes' polynomial for log(1 + x) on [sqrt(1/2) - 1,
+# sqrt(2) - 1], evaluated in three interleaved parts with FMAs
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log`` on the CPU, op for op: x = m 2^e with m in
+    [sqrt(1/2), sqrt(2)), a degree-8 polynomial in m - 1, and log(2) e
+    added in two parts. It agrees with the correctly rounded log on about
+    92% of inputs and with XLA's own on every input tried (300,000 in
+    [1e-6, 10]); ``torch.log`` agrees with XLA's on about 92%. Zero,
+    negative, infinite and NaN inputs give what ``torch.log`` gives."""
+    m, e = torch.frexp(x)
+    e = e.float()
+    small = m < _f32(0.707106781186547524)
+    e = e - small.float()
+    z = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    z2 = z * z
+    z3 = z2 * z
+    c = [float(_f32(v)) for v in _LOG_P]
+    y0 = fma_f32(fma_f32(z, c[0], c[1]), z.double(), c[2])
+    y1 = fma_f32(fma_f32(z, c[3], c[4]), z.double(), c[5])
+    y2 = fma_f32(fma_f32(z, c[6], c[7]), z.double(), c[8])
+    y = fma_f32(fma_f32(y0, z3.double(), y1), z3.double(), y2)
+    y = fma_f32(y, z3.double(), e * _f32(_LOG_Q1))
+    out = fma_f32(e, _f32(_LOG_Q2), (z - z2 * 0.5) + y)
+    special = ~torch.isfinite(x) | (x <= 0)
+    return torch.where(special, torch.log(x), out)
+
+
 _NORMAL_LO = -1.0 + 2.0 ** -24          # nextafter(-1, 0) in f32
 _SQRT2_F32 = _f32(math.sqrt(2.0))
 
@@ -230,7 +283,7 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.normal`` (f32): sqrt(2) erfinv(U(nextafter(-1, 0), 1))."""
     shape = _shape(shape)
     z = _hash_counts(key, math.prod(shape), _bits_to_normal, torch.float32)
-    return z.reshape(shape)
+    return z.reshape(key.shape[:-1] + shape)
 
 
 def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
@@ -246,8 +299,8 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
     shape = _shape(shape)
     minval, maxval = int(minval), int(maxval)
     k = split(key)
-    higher = bits(k[0], shape)
-    lower = bits(k[1], shape)
+    higher = bits(k[..., 0, :], shape)
+    lower = bits(k[..., 1, :], shape)
     span = maxval - minval if maxval > minval else 1
     multiplier = (2 ** 16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span
@@ -269,12 +322,123 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def choice(key: torch.Tensor, n: int, shape: Shape = (),
-           replace: bool = True) -> torch.Tensor:
-    """``jax.random.choice(key, n, shape, replace)`` without ``p``."""
+           replace: bool = True, p: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace, p)``. With ``p`` (and
+    ``replace``): the inverse CDF, ``searchsorted(cumsum(p), cdf[-1] *
+    (1 - U))`` on the left side. A batch of M keys with p of shape
+    (M, n) draws as ``jax.vmap`` over both."""
     shape = _shape(shape)
     m = math.prod(shape)
+    if p is not None:
+        if not replace:
+            raise NotImplementedError("choice with p and replace=False "
+                                      "(JAX's Gumbel top-k) is not ported")
+        cdf = torch.cumsum(p.float(), dim=-1)
+        u = uniform(key, shape).reshape(key.shape[:-1] + (m,))
+        r = cdf[..., -1:] * (1.0 - u)
+        return torch.searchsorted(cdf, r).reshape(
+            key.shape[:-1] + shape)
     if not replace:
         if m > n:
             raise ValueError(f"cannot take {m} of {n} without replacement")
         return permutation(key, n)[:m].reshape(shape)
     return randint(key, shape, 0, n)
+
+
+# ------------------------------------------------------------------ gamma
+
+def _f32_const(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _gamma_one(keys: torch.Tensor, alpha: torch.Tensor, log_space: bool
+               ) -> torch.Tensor:
+    """JAX's ``_gamma_one`` (Marsaglia-Tsang) for M keys and M alphas at
+    once. Each element keeps its own key stream; the two rejection loops
+    run masked over every element, one ``.any()`` a trip, and an element
+    whose loop has ended keeps its values, as a vmapped ``while_loop``
+    keeps them. ``a * b + c`` rounds once where XLA's CPU backend
+    contracts it into an FMA."""
+    one = _f32_const(1.0, alpha)
+    third = _f32_const(1.0 / 3.0, alpha)
+    boost_mask = alpha >= one
+    a = torch.where(boost_mask, alpha, alpha + one)
+    d = a - third
+    c = third / torch.sqrt(d)
+
+    ks = split(keys)
+    key, subkey = ks[:, 0], ks[:, 1]
+    x_sq = torch.zeros_like(alpha)
+    v_cube = torch.ones_like(alpha)
+    u = torch.full_like(alpha, 2.0)
+
+    def rejected(x_sq, v_cube, u):
+        squeeze = fma_f32(x_sq * x_sq, -_f32(0.0331), 1.0)
+        rhs = fma_f32(d, (one - v_cube) + log_f32(v_cube), x_sq * 0.5)
+        return (u >= squeeze) & (log_f32(u) >= rhs)
+
+    active = rejected(x_sq, v_cube, u)
+    while bool(active.any()):
+        k3 = split(key, 3)
+        new_key, x_key, u_key = k3[:, 0], k3[:, 1], k3[:, 2]
+        x = torch.zeros_like(alpha)
+        v = -torch.ones_like(alpha)
+        inner = v <= 0
+        while bool(inner.any()):
+            k2 = split(x_key)
+            z = normal(k2[:, 1], ())
+            x = torch.where(inner, z, x)
+            v = torch.where(inner, fma_f32(z, c, 1.0), v)
+            x_key = torch.where(inner[:, None], k2[:, 0], x_key)
+            inner = v <= 0
+        x_sq = torch.where(active, x * x, x_sq)
+        v_cube = torch.where(active, v * v * v, v_cube)
+        u = torch.where(active, uniform(u_key, ()), u)
+        key = torch.where(active[:, None], new_key, key)
+        active = active & rejected(x_sq, v_cube, u)
+    if log_space:
+        log_samples = torch.log1p(-uniform(subkey, ()))
+        log_boost = torch.where(boost_mask | (log_samples == 0),
+                                torch.zeros_like(alpha),
+                                log_samples * (one / alpha))
+        return (log_f32(d) + log_f32(v_cube)) + log_boost
+    samples = one - uniform(subkey, ())
+    boost = torch.where(boost_mask, one, torch.pow(samples, one / alpha))
+    return d * v_cube * boost
+
+
+def _gamma(key: torch.Tensor, a, shape: Optional[Shape], log_space: bool
+           ) -> torch.Tensor:
+    """JAX's ``_gamma_impl``: ``a`` broadcast to ``shape`` and one key a
+    element, ``split(key, prod(shape))`` in row-major order."""
+    a = torch.as_tensor(a, dtype=torch.float32, device=key.device)
+    shape = tuple(a.shape) if shape is None else _shape(shape)
+    a = torch.broadcast_to(a, shape).reshape(-1)
+    m = math.prod(shape)
+    if m == 0:
+        return torch.empty(shape, dtype=torch.float32, device=key.device)
+    keys = split(key, m)
+    return _gamma_one(keys, a, log_space).reshape(shape)
+
+
+def gamma(key: torch.Tensor, a, shape: Optional[Shape] = None
+          ) -> torch.Tensor:
+    """``jax.random.gamma`` (f32, unit rate)."""
+    return _gamma(key, a, shape, log_space=False)
+
+
+def loggamma(key: torch.Tensor, a, shape: Optional[Shape] = None
+             ) -> torch.Tensor:
+    """``jax.random.loggamma``: log of a Gamma(a) sample, drawn in log
+    space (so small ``a`` does not underflow)."""
+    return _gamma(key, a, shape, log_space=True)
+
+
+def dirichlet(key: torch.Tensor, alpha, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.dirichlet``: ``softmax(loggamma(key, alpha, shape +
+    (n,)), -1)``, with JAX's softmax (exp of x - max, over its sum)."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=key.device)
+    lg = loggamma(key, alpha, _shape(shape) + tuple(alpha.shape[-1:]))
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)

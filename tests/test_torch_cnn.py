@@ -1,7 +1,10 @@
 """The port's CNN families against ``repro.models.cnn`` on the CPU:
 forward, loss and gradients with params carried across
 (``repro_torch.convert``), init through the port's PRNG, and the flat
-order of the params (the rand-k indices address the flat vector)."""
+order of the params (the rand-k indices address the flat vector). The
+ResNet also at image sizes whose stride-2 SAME padding is (1, 1)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 from jax.flatten_util import ravel_pytree
 
-from repro.configs.paper_models import BENCH_CNN_CIFAR, BENCH_MLP
+from repro.configs.paper_models import (BENCH_CNN_CIFAR, BENCH_CNN_FEMNIST,
+                                        BENCH_MLP, PAPER_RESNET18_FEMNIST)
 from repro.models import cnn as jcnn
 from repro_torch import convert, prng
 from repro_torch.configs import paper_models as tpm
@@ -19,10 +23,23 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.tree import Unravel, ravel
 
 CFGS = {"mlp": (BENCH_MLP, tpm.BENCH_MLP),
-        "vgg": (BENCH_CNN_CIFAR, tpm.BENCH_CNN_CIFAR)}
+        "vgg": (BENCH_CNN_CIFAR, tpm.BENCH_CNN_CIFAR),
+        "resnet": (BENCH_CNN_FEMNIST, tpm.BENCH_CNN_FEMNIST)}
 # f32 forward and backward in another summation order (XLA vs ATen
 # kernels): a few ulp on O(1) values
 RTOL, ATOL = 1e-5, 1e-6
+# the ResNet has no normalization: its logits grow to 10-50 and its
+# gradients to 1-20 at these widths, so its absolute tolerances are 1e-6
+# of the largest magnitude (forward: measured at most 4.7e-7 of
+# max|logit|; gradient: at most 9.4e-7 of max|g|, at image sizes 7, 13,
+# 14 and 28)
+RESNET_ATOL_OF_MAX = 1e-6
+
+
+def _atol(arch, want, default=ATOL):
+    if arch == "resnet":
+        return RESNET_ATOL_OF_MAX * float(np.abs(want).max())
+    return default
 
 
 @pytest.fixture(autouse=True)
@@ -45,10 +62,10 @@ def _problem(arch, batch=6, seed=0):
 def test_forward_loss_and_grads_match(arch):
     jcfg, tcfg, jparams, x, y = _problem(arch)
     tparams = convert.params_from_jax(jparams, device="cpu")
+    want = np.asarray(jcnn.apply_cnn(jparams, jcfg, jnp.asarray(x)))
     np.testing.assert_allclose(
-        tcnn.apply_cnn(tparams, tcfg, torch.as_tensor(x)).numpy(),
-        np.asarray(jcnn.apply_cnn(jparams, jcfg, jnp.asarray(x))),
-        rtol=RTOL, atol=ATOL)
+        tcnn.apply_cnn(tparams, tcfg, torch.as_tensor(x)).numpy(), want,
+        rtol=RTOL, atol=_atol(arch, want))
 
     jbatch = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
     (jloss, jaux), jgrads = jax.value_and_grad(
@@ -62,8 +79,9 @@ def test_forward_loss_and_grads_match(arch):
                                rtol=RTOL)
     assert float(taux["accuracy"]) == float(jaux["accuracy"])
     tflat = ravel(dict(zip(leaves, grads))).numpy()
-    np.testing.assert_allclose(tflat, np.asarray(ravel_pytree(jgrads)[0]),
-                               rtol=1e-4, atol=1e-6)
+    jflat = np.asarray(ravel_pytree(jgrads)[0])
+    np.testing.assert_allclose(tflat, jflat, rtol=1e-4,
+                               atol=_atol(arch, jflat, 1e-6))
 
 
 @pytest.mark.parametrize("arch", sorted(CFGS))
@@ -103,10 +121,84 @@ def test_paper_vgg11_dimension():
     assert sum(p.numel() for p in params.values()) == 9_222_858
 
 
-def test_resnet_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tcnn.init_cnn(prng.PRNGKey(0, "cpu"), tpm.BENCH_CNN_FEMNIST,
-                      device="cpu")
+# ------------------------------------------------------------ the ResNet
+
+def test_same_pads_are_xla_s():
+    """XLA's SAME: the odd pixel goes high, and at stride 2 the pads
+    depend on the size's parity."""
+    assert tcnn._same_pads(28, 3, 1) == (1, 1)
+    assert [tcnn._same_pads(n, 3, 2) for n in (28, 14, 7, 4)] == [
+        (0, 1), (0, 1), (1, 1), (0, 1)]
+    assert [tcnn._same_pads(n, 1, 2) for n in (28, 7, 13)] == [(0, 0)] * 3
+
+
+@pytest.mark.parametrize("size", [7, 13])
+def test_resnet_at_odd_sizes_matches(size):
+    """Sizes 7 and 13: the stride-2 convolutions of stages 1-3 pad (1, 1)
+    where an even size pads (0, 1). Forward within RTOL, the gradient
+    within rtol 1e-4 (as the other families), both with the ResNet's
+    absolute tolerance."""
+    jcfg = dataclasses.replace(BENCH_CNN_FEMNIST, image_size=size)
+    tcfg = dataclasses.replace(tpm.BENCH_CNN_FEMNIST, image_size=size)
+    jparams = jax.device_get(jcnn.init_cnn(jax.random.PRNGKey(1), jcfg))
+    tparams = convert.params_from_jax(jparams, device="cpu")
+    rng = np.random.default_rng(size)
+    x = rng.standard_normal((5, 1, size, size)).astype(np.float32)
+    y = rng.integers(0, 62, 5).astype(np.int32)
+    want = np.asarray(jcnn.apply_cnn(jparams, jcfg, jnp.asarray(x)))
+    np.testing.assert_allclose(
+        tcnn.apply_cnn(tparams, tcfg, torch.as_tensor(x)).numpy(), want,
+        rtol=RTOL, atol=_atol("resnet", want))
+    jgrads = jax.grad(lambda p: jcnn.cnn_loss(
+        p, jcfg, {"x": jnp.asarray(x), "y": jnp.asarray(y)})[0])(jparams)
+    leaves = {n: t.clone().requires_grad_(True) for n, t in tparams.items()}
+    loss, _ = tcnn.cnn_loss(leaves, tcfg, {"x": torch.as_tensor(x),
+                                           "y": torch.as_tensor(y).long()})
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    jflat = np.asarray(ravel_pytree(jgrads)[0])
+    np.testing.assert_allclose(ravel(dict(zip(leaves, grads))).numpy(),
+                               jflat, rtol=1e-4,
+                               atol=_atol("resnet", jflat))
+
+
+def test_resnet_leaf_names_order_and_dimensions():
+    """Names by path, in JAX's ``tree_flatten`` order; d = 705,486 at
+    BENCH_CNN_FEMNIST and 11,189,886 at the paper's width (the paper
+    quotes 11,192,746; the reference's model is this one), the latter
+    from shapes alone on the meta device."""
+    tparams = tcnn.init_cnn(prng.PRNGKey(0, "cpu"), tpm.BENCH_CNN_FEMNIST,
+                            device="cpu")
+    jparams = jcnn.init_cnn(jax.random.PRNGKey(0), BENCH_CNN_FEMNIST)
+    paths = [".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(jparams)[0]]
+    assert list(tparams) == paths
+    assert paths[:3] == ["out.b", "out.w", "stages.0.0.c1"]
+    assert paths[-1] == "stem"
+    assert "stages.1.0.proj" in paths and "stages.0.0.proj" not in paths
+    assert sum(t.numel() for t in tparams.values()) == 705_486
+    meta = tcnn.init_cnn(prng.PRNGKey(0, "meta"),
+                         tpm.PAPER_RESNET18_FEMNIST, device="meta")
+    assert sum(t.numel() for t in meta.values()) == 11_189_886
+    assert [tuple(meta[n].shape) for n in meta] == [
+        tuple(leaf.shape) for leaf in jax.tree_util.tree_leaves(
+            jax.eval_shape(lambda: jcnn.init_cnn(jax.random.PRNGKey(0),
+                                                 PAPER_RESNET18_FEMNIST)))]
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["bench", "paper"])
+def test_resnet_params_round_trip_through_convert(full):
+    """``params_from_jax`` and ``params_to_jax`` carry the nested lists of
+    block dicts both ways, bit for bit."""
+    jcfg = PAPER_RESNET18_FEMNIST if full else BENCH_CNN_FEMNIST
+    jparams = jax.device_get(jcnn.init_cnn(jax.random.PRNGKey(2), jcfg))
+    tparams = convert.params_from_jax(jparams, device="cpu")
+    back = convert.params_to_jax(tparams)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(jparams)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jparams)))
+    assert isinstance(back["stages"][3][1], dict)
 
 
 # ------------------------------------------------ cuDNN flags of the convs
@@ -157,10 +249,11 @@ def test_local_train_runs_forward_and_backward_in_f32_deterministic():
     assert all(f == SCOPED for f in seen["backward"])
 
 
-def test_apply_cnn_runs_every_conv_in_f32_deterministic(monkeypatch):
+@pytest.mark.parametrize("tcfg", [tpm.BENCH_CNN_CIFAR, tpm.BENCH_CNN_FEMNIST],
+                         ids=["vgg", "resnet"])
+def test_apply_cnn_runs_every_conv_in_f32_deterministic(tcfg, monkeypatch):
     """``apply_cnn`` (evaluation's path) scopes its convolutions itself,
     and gives the caller's flags back."""
-    tcfg = tpm.BENCH_CNN_CIFAR
     params = tcnn.init_cnn(prng.PRNGKey(0, "cpu"), tcfg, device="cpu")
     seen = []
     conv2d = tcnn.F.conv2d
@@ -170,11 +263,13 @@ def test_apply_cnn_runs_every_conv_in_f32_deterministic(monkeypatch):
         return conv2d(*args, **kwargs)
 
     monkeypatch.setattr(tcnn.F, "conv2d", recording_conv2d)
+    size = tcfg.image_size
     with torch.backends.cudnn.flags(**CALLER):
-        logits = tcnn.apply_cnn(params, tcfg, torch.zeros((2, 3, 16, 16)))
+        logits = tcnn.apply_cnn(params, tcfg, torch.zeros(
+            (2, tcfg.in_channels, size, size)))
         assert _cudnn_flags() == CALLER
-    assert logits.shape == (2, 10)
-    assert len(seen) == sum(n.startswith("convs.") for n in params)
+    assert logits.shape == (2, tcfg.num_classes)
+    assert len(seen) == sum(t.ndim == 4 for t in params.values())
     assert all(f == SCOPED for f in seen)
 
 

@@ -230,16 +230,21 @@ def test_step_and_carried_state_match_reference():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(bank_backend="streamed", error_feedback=True), "item 8"),
     (dict(channel=ChannelConfig(model="dropout")), "item 9"),
     (dict(channel=ChannelConfig(model="mimo_mrc")), "item 9"),
     (dict(compressor="threshold"), "item 10"),
     (dict(compressor="stoch_quant"), "item 10"),
-    (dict(bank_backend="streamed"), "item 8"),
     (dict(channel=ChannelConfig(model="markov_fading")), "item 9"),
     (dict(compressor="top_k_ef"), "item 10"),
     (dict(schedule=CompressionSchedule(mode="linear")), "item 10"),
     (dict(client_sharding="cohort"), "item 11"),
+    (dict(schedule=CompressionSchedule(mode="linear"), error_feedback=True),
+     "item 10"),
+    (dict(schedule=CompressionSchedule(mode="budget")), "item 10"),
+    (dict(bank_backend="streamed", channel=ChannelConfig(model="dropout")),
+     "item 9"),
+    (dict(bank_backend="streamed", compressor="top_k_ef"), "item 10"),
+    (dict(bank_backend="streamed", client_sharding="cohort"), "item 11"),
 ])
 def test_unported_options_raise(override, item):
     params, _, _, _, _, loss_fn = _port_problem()
