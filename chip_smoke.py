@@ -18,7 +18,9 @@ Phases, each printing one JSON line:
    on the card, at its main-path shapes and at ragged small shapes; run
    twice for bit-identity; timed with CUDA events beside its bound, the
    plain version and a one-call PyTorch yardstick where one exists. The
-   PFELS pair at r = 32, d = 9,222,858; ``ssd_scan`` at small shapes and
+   PFELS pair at r = 32, d = 9,222,858, also with M = 4 and M = 8
+   antenna gains and 8 of the 32 clients dropped (the scenarios'
+   inputs); ``ssd_scan`` at small shapes and
    ragged chunks (1 to 100 rows) in f32 (CUDA cores) and bf16 (tensor
    cores; also on misaligned views, which must equal their aligned
    copies, and at P = N = 128), the bf16 route held to the bound derived
@@ -56,10 +58,22 @@ Phases, each printing one JSON line:
    s/round, peak memory, metrics and every kernel's launches (the EF run
    holds the 36.9 GB residual bank, freed before the serve phases);
    ``--profile`` adds one profiled round of each.
-7. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
-   (kernels) against unfused (plain torch), and the PFELS, baseline and
-   error-feedback runs against the committed reference digests.
-8. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
+7. ``scenarios``: the golden rows' channel models, compressors and
+   schedules at the main path's config, 2 rounds each: ``markov_fading``
+   (rho 0.9), ``mimo_mrc`` (M = 4 and 8), ``dropout`` (0.4),
+   ``top_k_ef`` (clip 0.5; the 36.9 GB residual bank, freed after),
+   ``threshold`` (0.3), ``stoch_quant`` (6 bits, clip 0.5), the
+   ``linear`` and ``budget`` schedules: s/round, peak memory, the
+   transmit kernels' launches against those the config implies (counters
+   zeroed just before each scenario's rounds, read just after), finite
+   metrics, round 1 once more unfused from the same state and key (digest
+   gap limit 1e-4), and for ``markov_fading`` the streamed bank's channel
+   carry against the resident one's.
+8. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
+   (kernels) against unfused (plain torch), and 31 committed rows (PFELS,
+   the baselines, error feedback, the channel models, compressors and
+   schedules, resident and streamed) against the reference's digests.
+9. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
    PyTorch's defaults around the phase (TF32 on), so that the package's
    own scoping is what is checked: one local step's gradient at
    BENCH_CNN_CIFAR's and VGG-11's widths against the CPU (and without
@@ -69,7 +83,7 @@ Phases, each printing one JSON line:
    round without the package's scope under ``phase_device``'s flags (TF32
    off, nondeterministic algorithms allowed): whether that repeats, and
    what the deterministic algorithms cost in wall and device time.
-9. ``femnist``: the paper's second experiment, PFELS on the full-width
+10. ``femnist``: the paper's second experiment, PFELS on the full-width
    ResNet-18 of FEMNIST (d = 11,189,886) with N = 1000 clients of 50
    synthetic 1x28x28 images under a Dirichlet(0.5) label skew, drawn on
    the card, 3 rounds at the main path's settings: s/round, peak memory,
@@ -77,19 +91,19 @@ Phases, each printing one JSON line:
    labels' skew; one more round twice from one state and key (bit-equal,
    the second profiled: device idle share and time by kernel kind); one
    local step's gradient, card against CPU.
-10. ``streamed``: the streamed bank against the resident one from the
+11. ``streamed``: the streamed bank against the resident one from the
    same state and key, bit for bit: the main path's config (VGG-11,
    N = 1000, 3 rounds; both runs' s/round and peak memory), and PFELS
    with error feedback at BENCH_CNN_CIFAR's width.
-11. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
+12. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
    its own, with the reference's defaults for 10 rounds and at
    population scale (streamed bank, 100,000 clients); its ``--out`` JSON
    checked.
-12. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
+13. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
    prefill and 8 greedy decode steps on the card (kernels) against the
    same params on the CPU (plain versions); and the reduced zamba2-2.7b's
    bf16 prefill, card against CPU, within 3% of max|logit|.
-13. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
+14. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
    width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
    seed 0), then of mamba2-130m; launch counters zeroed just before each
    and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
@@ -251,7 +265,9 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _kernel_inputs(r, d, m_ant, seed, txm_zero, density=0.3):
+def _kernel_inputs(r, d, m_ant, seed, dropped, density=0.3):
+    """The transmit pair's inputs; ``dropped`` clients (every
+    ``r // dropped``-th from the first) have a transmit mask of 0."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -261,8 +277,8 @@ def _kernel_inputs(r, d, m_ant, seed, txm_zero, density=0.3):
     gains = 1e-3 + 0.1 * torch.rand((r, m_ant), generator=g, device=dev)
     tx = 1.0 + 100.0 * torch.rand((r,), generator=g, device=dev)
     txm = torch.ones((r,), device=dev)
-    if txm_zero:
-        txm[r // 2] = 0.0
+    if dropped:
+        txm[::r // dropped][:dropped] = 0.0
     return u, mask, z, gains, tx, txm
 
 
@@ -271,13 +287,14 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def check_kernels_at(r, d, m_ant, seed, txm_zero, timed, density=0.3):
+def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3):
     """One shape: both kernels against their plain versions, twice for
     bit-identity, and (if ``timed``) their times. ``density`` is the
-    support's share of d: 0.3 for PFELS, 1 for WFL-P and WFL-PDP."""
+    support's share of d: 0.3 for PFELS, 1 for WFL-P and WFL-PDP;
+    ``dropped`` the clients whose transmit mask is 0."""
     import torch
     from repro_torch.kernels.pfels_transmit import kernel, ref
-    u, mask, z, gains, tx, txm = _kernel_inputs(r, d, m_ant, seed, txm_zero,
+    u, mask, z, gains, tx, txm = _kernel_inputs(r, d, m_ant, seed, dropped,
                                                 density)
 
     s_k = kernel.client_sumsq(u)
@@ -295,7 +312,7 @@ def check_kernels_at(r, d, m_ant, seed, txm_zero, timed, density=0.3):
     y_ok = bool(torch.allclose(y_k, y_p, rtol=1e-5, atol=y_atol))
     e_rel = abs(float(e_k) - float(e_p)) / max(abs(float(e_p)), 1e-30)
     line = {"phase": "kernels", "r": r, "d": d, "M": m_ant,
-            "txm_zero": txm_zero, "support_share": density,
+            "dropped": dropped, "support_share": density,
             "client_sumsq": {"max_rel_err": sum_rel,
                              "max_abs_err": float((s_k - s_p).abs().max()),
                              "bit_identical": bool(torch.equal(s_k, s_k2))},
@@ -1156,14 +1173,19 @@ def check_row_kernels():
 
 
 def phase_kernels():
-    for r, d, m_ant, txm_zero in ((1, 4100, 4, False), (3, 4100, 4, True),
-                                  (4, 26_122, 1, False)):
-        check_kernels_at(r, d, m_ant, seed=r, txm_zero=txm_zero, timed=False)
-    summary = check_kernels_at(MAIN_R, MAIN_D, 1, seed=7, txm_zero=False,
+    for r, d, m_ant, dropped in ((1, 4100, 4, 0), (3, 4100, 4, 1),
+                                 (4, 26_122, 1, 0)):
+        check_kernels_at(r, d, m_ant, seed=r, dropped=dropped, timed=False)
+    summary = check_kernels_at(MAIN_R, MAIN_D, 1, seed=7, dropped=0,
                                timed=True)
     # the full support of WFL-P and WFL-PDP (k = d): the same bytes
-    check_kernels_at(MAIN_R, MAIN_D, 1, seed=8, txm_zero=False, timed=True,
+    check_kernels_at(MAIN_R, MAIN_D, 1, seed=8, dropped=0, timed=True,
                      density=1.0)
+    # the scenarios' inputs: mimo_mrc's (r, M) antenna gains, with 8 of
+    # the 32 clients dropped as under the dropout channel
+    for m_ant in (4, 8):
+        check_kernels_at(MAIN_R, MAIN_D, m_ant, seed=8 + m_ant, dropped=8,
+                         timed=True)
     summary["ssd_scan"] = check_ssd_kernels()
     for i, shape in enumerate(FLASH_SMALL):
         for dtype in ("float32", "bfloat16"):
@@ -1450,7 +1472,23 @@ BASELINE_RUNS = (
 )
 
 
-def phase_baselines(profile: bool):
+def vgg_problem():
+    """The main path's params and synthetic data (VGG-11 from key 0, 1000
+    clients of 50 CIFAR-size images from key 0, on the card), shared by
+    the phases that run VGG-11 at its config: (params, x, y, d)."""
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10
+    from repro_torch.data import make_federated_classification
+    from repro_torch.models import cnn
+    params = cnn.init_cnn(prng.PRNGKey(0), PAPER_VGG11_CIFAR10)
+    d = sum(p.numel() for p in params.values())
+    x, y, _, _ = make_federated_classification(
+        prng.PRNGKey(0), n_clients=1000, per_client=50, num_classes=10,
+        image_shape=(3, 32, 32))
+    return params, x, y, d
+
+
+def phase_baselines(profile: bool, problem):
     """``Trainer.run`` of each of the paper's comparators (and PFELS with
     error feedback) at the main path's config on VGG-11, 2 rounds each:
     s/round, peak memory, the metrics and the launches of every kernel;
@@ -1459,17 +1497,12 @@ def phase_baselines(profile: bool):
     from repro_torch import prng
     from repro_torch.configs import PAPER_VGG11_CIFAR10, PFELSConfig
     from repro_torch.core.channel import scaled_channel
-    from repro_torch.data import make_federated_classification
     from repro_torch.fl import Trainer
     from repro_torch.models import cnn
 
     cfg_m = PAPER_VGG11_CIFAR10
     rounds = 2
-    params = cnn.init_cnn(prng.PRNGKey(0), cfg_m)
-    d = sum(p.numel() for p in params.values())
-    x, y, _, _ = make_federated_classification(
-        prng.PRNGKey(0), n_clients=1000, per_client=50, num_classes=10,
-        image_shape=(3, 32, 32))
+    params, x, y, d = problem
     loss_fn = lambda p, b: cnn.cnn_loss(p, cfg_m, b)
     mods = _kernel_modules()
     failures = []
@@ -1520,8 +1553,161 @@ def phase_baselines(profile: bool):
                          lambda: trainer.step(end, x, y))
         del trainer, state, end, metrics
         torch.cuda.empty_cache()
-    del x, y, params
-    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# the scenarios of the golden rows (tools/update_goldens.py), at the main
+# path's config: (name, config overrides with the channel's fields under
+# "channel" and the schedule's under "schedule", client_sumsq launches a
+# round). The transmit clip is applied before the aggregator, so
+# client_sumsq is not launched, where error feedback (top_k_ef forces it)
+# or an encode hook (stoch_quant) needs the clipped updates.
+SCENARIOS = (
+    ("markov_fading", {"channel": {"model": "markov_fading",
+                                   "markov_rho": 0.9}}, 1),
+    ("mimo_mrc_4", {"channel": {"model": "mimo_mrc", "num_antennas": 4}}, 1),
+    ("mimo_mrc_8", {"channel": {"model": "mimo_mrc", "num_antennas": 8}}, 1),
+    ("dropout", {"channel": {"model": "dropout", "dropout_prob": 0.4}}, 1),
+    ("top_k_ef", {"compressor": "top_k_ef", "transmit_clip": 0.5}, 0),
+    ("threshold", {"compressor": "threshold", "threshold_frac": 0.3}, 1),
+    ("stoch_quant", {"compressor": "stoch_quant", "quant_bits": 6,
+                     "transmit_clip": 0.5}, 0),
+    ("schedule_linear", {"schedule": {"mode": "linear", "k_end_ratio": 0.5,
+                                      "power_end": 0.7}}, 1),
+    ("schedule_budget", {"schedule": {"mode": "budget", "eps_floor": 0.1}},
+     1),
+)
+# the fused round 1 against the unfused one from the same state and key,
+# as parity_on_card holds the golden problem's runs to the reference
+SCENARIO_GAP_TOL = 1e-4
+
+
+def _config(base, overrides):
+    """``base`` (a PFELSConfig) with ``overrides``, whose ``channel`` and
+    ``schedule`` entries are dicts of those configs' fields."""
+    import dataclasses
+    from repro_torch.configs import CompressionSchedule
+    kw = dict(overrides)
+    if "channel" in kw:
+        kw["channel"] = dataclasses.replace(base.channel, **kw["channel"])
+    if "schedule" in kw:
+        kw["schedule"] = CompressionSchedule(**kw["schedule"])
+    return dataclasses.replace(base, **kw)
+
+
+def _run_digests(end, metrics):
+    """Sum, |sum| and sum of squares of a run's end params and last
+    Delta_hat, and every round's metrics."""
+    from repro_torch.tree import ravel
+    out = {"params": _digest(ravel(end.params)),
+           "prev_delta": _digest(end.prev_delta)}
+    for k in ("train_loss", "update_norm", "beta", "energy", "eps_round",
+              "r_realized", "subcarriers"):
+        out[k] = [float(v) for v in metrics[k]]
+    return out
+
+
+def phase_scenarios(problem):
+    """Each of ``SCENARIOS`` at the main path's config on VGG-11 (N =
+    1000, r = 32, tau = 5, transmit clip 0.25, fused kernels): round 1
+    unfused (plain torch), then 2 fused rounds from the same state and
+    key, launch counters zeroed just before them and read just after; for
+    ``markov_fading`` also the streamed bank's 2 rounds from the same key.
+    ``top_k_ef`` holds the 36.9 GB residual bank, freed after it."""
+    import dataclasses
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10, PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.fl import Trainer
+    from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.models import cnn
+
+    params, x, y, d = problem
+    rounds = 2
+    base = PFELSConfig(transmit_clip=0.25, use_fused_kernel=True,
+                       channel=scaled_channel(d))
+    loss_fn = lambda p, b: cnn.cnn_loss(p, PAPER_VGG11_CIFAR10, b)
+    t0 = time.perf_counter()
+    failures = []
+    for name, overrides, sumsq_per_round in SCENARIOS:
+        cfg = _config(base, overrides)
+        trainer = Trainer(cfg, loss_fn, params)
+        state = trainer.init(prng.PRNGKey(1))
+        unfused = Trainer(dataclasses.replace(cfg, use_fused_kernel=False),
+                          loss_fn, params)
+        u_dig = _run_digests(*unfused.run(state, x, y, rounds=1))
+        del unfused
+        if state.residuals is not None:
+            # the resident bank is written in place: round 1 starts from
+            # the zero memory init() made
+            state.residuals.zero_()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+
+        def on_round(t, m):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        kernel.reset_launch_counts()
+        end, metrics = trainer.run(state, x, y, rounds=1, on_round=on_round)
+        f_dig = _run_digests(end, metrics)
+        per_round = [metrics]
+        for _ in range(rounds - 1):
+            end, metrics = trainer.run(end, x, y, rounds=1,
+                                       on_round=on_round)
+            per_round.append(metrics)
+        torch.cuda.synchronize()
+        launches = dict(kernel.LAUNCHES)
+        m = {k: [float(v) for pr in per_round for v in pr[k]]
+             for k in per_round[0]}
+        want = {"client_sumsq": sumsq_per_round * rounds,
+                "fused_combine": rounds}
+        gap = max(_digest_gaps(f_dig, u_dig).values())
+        shown = ("r_realized", "subcarriers", "beta", "energy", "eps_round",
+                 "train_loss")
+        line = {"phase": "scenarios", "scenario": name, **overrides,
+                "d": d, "r": cfg.clients_per_round,
+                "transmit_clip": cfg.transmit_clip, "rounds": rounds,
+                "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "launches": launches, "launches_expected": want,
+                **{k: m[k] for k in shown},
+                "ledger_eps": trainer.ledger_totals(end)["basic"][0],
+                "residuals_bytes": (0 if end.residuals is None else
+                                    end.residuals.numel() * 4),
+                "fused_vs_unfused_round1": gap,
+                "fused_vs_unfused_limit": SCENARIO_GAP_TOL}
+        line["finite"] = all(math.isfinite(v) for k in shown
+                             for v in m[k]) and \
+            math.isfinite(line["ledger_eps"])
+        if cfg.channel.model == "markov_fading":
+            streamed = Trainer(dataclasses.replace(cfg,
+                                                   bank_backend="streamed"),
+                               loss_fn, params)
+            s_end = streamed.init(prng.PRNGKey(1))
+            for _ in range(rounds):
+                s_end, _ = streamed.run(s_end, x, y, rounds=1)
+            line["carry_streamed_equal"] = bool(torch.equal(end.chan,
+                                                            s_end.chan))
+            del streamed, s_end
+        emit(line)
+        if launches != want:
+            failures.append(f"{name}: launched {launches}, expected {want}")
+        if not line["finite"]:
+            failures.append(f"{name}: non-finite metric")
+        if not gap <= SCENARIO_GAP_TOL:
+            failures.append(f"{name}: fused and unfused round 1 differ by "
+                            f"{gap}")
+        if not line.get("carry_streamed_equal", True):
+            failures.append(f"{name}: the streamed bank's channel carry "
+                            f"differs from the resident one's")
+        del trainer, state, end, metrics, per_round
+        torch.cuda.empty_cache()
+    emit({"phase": "scenarios", "seconds": time.perf_counter() - t0})
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1533,15 +1719,13 @@ def _digest(a):
 
 
 def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
-    """Digests of ``Trainer.run`` for ``cfg.rounds`` rounds from ``params``
-    and data ``x``, ``y``, all moved to ``device``, with the golden
-    problem's keys (init key 1, run key 2): sum, |sum| and sum of squares
-    of the params and of the last Delta_hat, and every round's metrics."""
+    """``_run_digests`` of ``Trainer.run`` for ``cfg.rounds`` rounds from
+    ``params`` and data ``x``, ``y``, all moved to ``device``, with the
+    golden problem's keys (init key 1, run key 2)."""
     import torch
     from repro_torch import prng
     from repro_torch.fl import Trainer, replace
     from repro_torch.models import cnn
-    from repro_torch.tree import ravel
 
     params = {n: t.to(device) for n, t in params.items()}
     trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, model_cfg, b),
@@ -1552,11 +1736,7 @@ def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
                                rounds=cfg.rounds)
     if device != "cpu":
         torch.cuda.synchronize()
-    out = {"params": _digest(ravel(end.params)),
-           "prev_delta": _digest(end.prev_delta)}
-    for k in ("train_loss", "update_norm", "beta", "energy", "eps_round"):
-        out[k] = [float(v) for v in metrics[k]]
-    return out
+    return _run_digests(end, metrics)
 
 
 def _golden_digests(**overrides):
@@ -1570,10 +1750,10 @@ def _golden_digests(**overrides):
     x, y, _, _ = make_federated_classification(
         key, n_clients=20, per_client=20, num_classes=10,
         image_shape=(1, 8, 8))
-    cfg = PFELSConfig(num_clients=20, clients_per_round=4, local_steps=2,
-                      local_lr=0.05, compression_ratio=0.3, epsilon=2.0,
-                      rounds=2, **overrides)
-    return _round_digests(BENCH_MLP, params, x, y, cfg)
+    base = PFELSConfig(num_clients=20, clients_per_round=4, local_steps=2,
+                       local_lr=0.05, compression_ratio=0.3, epsilon=2.0,
+                       rounds=2)
+    return _round_digests(BENCH_MLP, params, x, y, _config(base, overrides))
 
 
 def _max_rel_gap(a, b):
@@ -1598,6 +1778,49 @@ GOLDEN_ROWS = {
 }
 
 
+def _scenario_golden_rows():
+    """The 22 single-device golden rows of the channel models and
+    compressors (``tools/update_goldens.py``), as ``_config`` overrides."""
+    rows = {}
+    for tag, backend in (("", "resident"), ("-streamed", "streamed")):
+        for name, chan in (("markov", {"model": "markov_fading",
+                                       "markov_rho": 0.9}),
+                           ("mimo_mrc", {"model": "mimo_mrc",
+                                         "num_antennas": 8}),
+                           ("dropout", {"model": "dropout",
+                                        "dropout_prob": 0.4})):
+            rows[f"chan_{name}{tag}"] = dict(
+                bank_backend=backend, use_fused_kernel=False, channel=chan)
+            if name == "mimo_mrc":
+                chan = dict(chan, num_antennas=4)
+            rows[f"chan_{name}-fused{tag}"] = dict(bank_backend=backend,
+                                                   channel=chan)
+        rows[f"comp_top_k_ef{tag}"] = dict(
+            bank_backend=backend, compressor="top_k_ef", transmit_clip=0.5)
+        rows[f"comp_threshold{tag}"] = dict(
+            bank_backend=backend, compressor="threshold", threshold_frac=0.3)
+        rows[f"comp_stoch_quant{tag}"] = dict(
+            bank_backend=backend, compressor="stoch_quant", quant_bits=6,
+            transmit_clip=0.5)
+    rows.update({
+        "comp_top_k_ef-unfused": dict(compressor="top_k_ef",
+                                      transmit_clip=0.5,
+                                      use_fused_kernel=False),
+        "comp_stoch_quant-unfused": dict(compressor="stoch_quant",
+                                         quant_bits=6, transmit_clip=0.5,
+                                         use_fused_kernel=False),
+        "comp_sched_linear": dict(schedule={"mode": "linear",
+                                            "k_end_ratio": 0.5,
+                                            "power_end": 0.7}),
+        "comp_sched_budget": dict(schedule={"mode": "budget",
+                                            "eps_floor": 0.1}),
+    })
+    return rows
+
+
+GOLDEN_ROWS.update(_scenario_golden_rows())
+
+
 def phase_parity():
     from repro_torch.kernels.pfels_transmit import kernel
     kernel.reset_launch_counts()
@@ -1618,6 +1841,7 @@ def phase_parity():
                                                 "eps_round")}}
         gaps[f"{name}_vs_reference"] = _max_rel_gap(got, want)
     emit({"phase": "parity_on_card", "problem": "golden BENCH_MLP, 2 rounds",
+          "rows": len(runs),
           "fused_launches": fused_launches, "max_rel_gap": gaps,
           "tolerance": {"fused_vs_unfused": 1e-5, "vs_reference": 1e-4}})
     failures = []
@@ -2549,7 +2773,11 @@ def main(argv=None) -> int:
     summary = phase_kernels()
     launches = phase_main_path(args.profile)
     launches.update(phase_kernel_api())
-    phase_baselines(args.profile)
+    problem = vgg_problem()
+    phase_baselines(args.profile, problem)
+    phase_scenarios(problem)
+    del problem
+    torch.cuda.empty_cache()
     phase_parity()
     phase_conv_parity()
     phase_femnist()

@@ -119,11 +119,10 @@ def train_state_from_jax(state: Any, device: Device = "cuda") -> TrainState:
     """A ``repro.fl.api.TrainState`` (its leaves as numpy, e.g. through
     ``jax.device_get``) -> the port's ``TrainState``: params, power
     limits, bank (error-feedback residuals, lanes and counts), prev_delta,
-    key, round and ledger. Channel carries are not ported yet."""
-    if getattr(state, "chan", None) is not None:
-        raise NotImplementedError("stateful channel carries are not "
-                                  "ported yet: ROADMAP Queue 1, item 9")
+    key, round, ledger and the channel-model carry (the Markov model's
+    (N,) latent state, same dtype and bits; None for stateless models)."""
     t = lambda a, dt: tensor_from_numpy(a, device).to(dt)
+    chan = getattr(state, "chan", None)
     return TrainState(
         params=params_from_jax(state.params, device),
         power_limits=t(state.power_limits, torch.float32),
@@ -139,4 +138,4 @@ def train_state_from_jax(state: Any, device: Device = "cuda") -> TrainState:
             eps_sum=t(state.ledger.eps_sum, torch.float32),
             eps_max=t(state.ledger.eps_max, torch.float32),
             spends=t(state.ledger.spends, torch.int32)),
-        chan=None)
+        chan=None if chan is None else _nested(chan, device))

@@ -48,10 +48,16 @@ def aircomp_aggregate(updates_flat, idx, gains, beta, noise_key, *,
     signals = (beta / comp)[:, None] * proj                         # x_i
     if tx_mask is not None:
         signals = signals * tx_mask[:, None]
-    noise = sigma0 * prng.normal(noise_key, (k,))
-    if active is not None:
-        noise = noise * active
-    y = chan.receive(signals, gains, noise)                         # (k,)
+    if active is None:
+        # the noise's last multiply and the add fuse into one FMA, as
+        # XLA's CPU backend computes the reference's receive(...) + noise:
+        # y bit-equal to the reference's where the draw is, so that a
+        # server-guided support breaks ties of |Delta_hat| the same way
+        y = prng.normal_fma(noise_key, (k,), sigma0,
+                            chan.receive(signals, gains, 0.0))      # (k,)
+    else:
+        noise = sigma0 * prng.normal(noise_key, (k,)) * active
+        y = chan.receive(signals, gains, noise)                     # (k,)
     delta_hat = comp_base.decode_support(y, sup, d) / (
         realized_r(tx_mask, r) * beta)
     if unbiased_rescale:

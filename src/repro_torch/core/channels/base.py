@@ -1,7 +1,8 @@
 """Channel-model registry (port of ``repro/core/channels/base.py``): a
-model supplies the round's gains and its post-combining receiver noise.
-The port registers ``block_fading``; the other scenarios wait for ROADMAP
-Queue 1, item 9."""
+model supplies the round's gains (possibly from state carried across
+rounds in ``TrainState.chan``), the observed-gain view, an optional
+transmit mask and its post-combining receiver noise. Models that need
+extra draws derive them by ``fold_in`` on the round's gains lane."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,37 +29,49 @@ class ChannelRound(NamedTuple):
 
 @dataclass(frozen=True)
 class ChannelModel:
-    """``init(key, n, cfg) -> carry``; ``step(carry, cfg, r, sel,
-    gains_key, csi_key) -> (carry, ChannelRound)``; ``noise_std(cfg)`` the
-    post-combining receiver noise std."""
+    """``init(key, n, cfg) -> carry`` (None for stateless models);
+    ``step(carry, cfg, r, sel, gains_key, csi_key) -> (carry,
+    ChannelRound)``; ``noise_std(cfg)`` the post-combining receiver noise
+    std; ``stateful(cfg)`` whether ``init`` returns real state;
+    ``may_mask(cfg)`` whether ``step`` can return a ``tx_mask`` (the round
+    body plumbs the mask only then)."""
     name: str
     init: Callable
     step: Callable
     noise_std: Callable
+    stateful: Callable = lambda cfg: False
+    may_mask: Callable = lambda cfg: False
 
 
 _REGISTRY: Dict[str, ChannelModel] = {}
 
 
 def register_channel_model(name: str, model: ChannelModel) -> ChannelModel:
+    """Add a scenario under ``ChannelConfig.model == name``."""
     if name in _REGISTRY:
         raise ValueError(f"channel model {name!r} already registered")
+    if model.init is None or model.step is None or model.noise_std is None:
+        raise ValueError(f"channel model {name!r} needs init, step and "
+                         f"noise_std hooks")
     _REGISTRY[name] = model
     return model
+
+
+def unregister_channel_model(name: str) -> None:
+    _REGISTRY.pop(name, None)
 
 
 def get_channel_model(name: str) -> ChannelModel:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"channel model {name!r} is not ported yet (ported: "
-            f"{sorted(_REGISTRY)}): ROADMAP Queue 1, item 9") from None
+        raise KeyError(
+            f"unknown channel model {name!r}; registered: "
+            f"{sorted(_REGISTRY)} (add new scenarios via "
+            f"repro_torch.core.channels.register_channel_model)") from None
 
 
 def list_channel_models():
-    """The ported models' names (the reference's others wait for ROADMAP
-    Queue 1, item 9)."""
     return sorted(_REGISTRY)
 
 

@@ -24,6 +24,14 @@ def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
+def warm(prev_delta) -> bool:
+    """The reference's cold-start test, ``||prev_delta|| > 0`` (one host
+    read): the server-guided supports select from ``prev_delta`` only
+    when it is not all zero."""
+    return (prev_delta is not None
+            and bool(torch.sum(prev_delta * prev_delta) > 0))
+
+
 def _server_topk_indices(d: int, k: int, prev_delta, key) -> torch.Tensor:
     k1 = k // 2
     idx_top = top_k_indices(torch.abs(prev_delta), k1)
@@ -34,9 +42,7 @@ def _server_topk_indices(d: int, k: int, prev_delta, key) -> torch.Tensor:
 
 
 def select_support(cfg, d: int, k: int, prev_delta, key) -> Support:
-    # the reference's cold-start test, ||prev_delta|| > 0 (one host read)
-    if (cfg.randk_mode == "server_topk" and prev_delta is not None
-            and bool(torch.sum(prev_delta * prev_delta) > 0)):
+    if cfg.randk_mode == "server_topk" and warm(prev_delta):
         return Support(_server_topk_indices(d, k, prev_delta, key))
     return Support(randk.sample_indices(key, d, k))
 

@@ -25,15 +25,18 @@ def beta_power_cap(gains, power_limits, d: int, k, c1: float,
     return torch.min(per)
 
 
-def beta_pfels(gains, power_limits, *, d: int, k: int, c1: float, eta: float,
-               tau: int, epsilon: float, r: int, n: int, delta: float,
+def beta_pfels(gains, power_limits, *, d: int, k, c1: float, eta: float,
+               tau: int, epsilon, r: int, n: int, delta: float,
                sigma0: float):
-    """Theorem 5: the optimal per-round alignment coefficient. The privacy
-    cap is host float64 math, rounded to f32 at the ``minimum``."""
+    """Theorem 5: the optimal per-round alignment coefficient. ``k`` may
+    be a live-slot count tensor and ``epsilon`` a per-round ceiling tensor
+    (the schedules). With a number epsilon the privacy cap is host float64
+    math, rounded to f32 at the ``minimum``; with a tensor it is an f32
+    division, as the reference's traced ceiling gives."""
     cap_power = beta_power_cap(gains, power_limits, d, k, c1, eta, tau)
     cap_priv = privacy.beta_privacy_cap(epsilon, eta, tau, c1, r, n, delta,
                                         sigma0)
-    return torch.minimum(cap_power, torch.tensor(
+    return torch.minimum(cap_power, torch.as_tensor(
         cap_priv, dtype=torch.float32, device=cap_power.device))
 
 

@@ -6,7 +6,9 @@ per-device power limits, the client bank (error-feedback residuals,
 lanes and participation counts), the previous round's reconstructed
 update ``prev_delta`` (which ``randk_mode="server_topk"`` selects from),
 the PRNG key the next call consumes, the round counter, the privacy
-ledger and the channel-model carry.
+ledger and the channel-model carry (the Markov model's (N,) latent
+state; None for stateless models). The round counter and the ledger's
+running spend feed the compression schedule on the device.
 
 ``cfg.bank_backend`` selects where the bank lives: ``resident`` (device
 tensors) or ``streamed`` (host memory, with the cohort's data made or
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.configs.base import PFELSConfig
-from repro_torch.core import channels, privacy
+from repro_torch.core import channels, compressors, privacy
 from repro_torch.data import loader
 from repro_torch.fl import algorithms, rounds
 from repro_torch.fl import bank as bank_lib
@@ -49,7 +51,7 @@ class TrainState:
     key: torch.Tensor                 # PRNG key the NEXT step/run consumes
     round: torch.Tensor               # int32 scalar, rounds completed
     ledger: privacy.LedgerState       # (eps, delta) accumulators
-    chan: Any = None                  # channel-model carry (None here)
+    chan: Any = None                  # channel-model carry (None: stateless)
 
     @property
     def residuals(self) -> Optional[torch.Tensor]:
@@ -65,8 +67,9 @@ class Trainer:
     (params, {"x", "y"}) -> (loss, aux)``; ``params_template`` defines d
     and the flat layout and is the default initial params. Every tensor
     of the state lives on ``device``. Options the port does not run yet
-    raise ``NotImplementedError`` here. With ``cfg.error_feedback`` the
-    bank's (N, d) residual memory is updated in place
+    raise ``NotImplementedError`` here. With ``cfg.error_feedback``, or a
+    compressor that requires it (``top_k_ef``), the bank's (N, d)
+    residual memory is updated in place
     (``bank.ResidentBank``), so a state cannot be rerun once a later
     state was made from it. The streamed bank clones its host state once
     per ``run`` or ``step`` call, so there a state can be rerun.
@@ -85,9 +88,13 @@ class Trainer:
                                  for n, t in params_template.items()}
         self.unravel = Unravel(self._params_template)
         self.d = self.unravel.d
+        # carry compressors (top_k_ef) force the residual memory on, as
+        # the round body's error feedback
+        ef_on = cfg.error_feedback or (
+            self.algorithm.aircomp and self.algorithm.sparsifies_transmit
+            and compressors.carry_required(cfg))
         self.bank = bank_lib.make_bank(cfg.bank_backend, cfg.num_clients,
-                                       self.d, cfg.error_feedback,
-                                       self.device)
+                                       self.d, ef_on, self.device)
         self._cohort_core = rounds.build_cohort_core(
             cfg, loss_fn, self.d, self.unravel)
 
@@ -125,11 +132,13 @@ class Trainer:
 
     # ------------------------------------------------------------- loops
 
-    def _bank_round(self, params, power_limits, bank, prev_delta, chan, ledger,
-               data_x, data_y, round_key):
+    def _bank_round(self, params, power_limits, bank, prev_delta, chan,
+                    ledger, data_x, data_y, round_key, t):
         """One round against the resident bank: sample the cohort, gather
-        its slices, run the cohort core, write its residual slice, this
-        round's bank lanes and counts back, charge the ledger."""
+        its slices, run the cohort core (``t`` the absolute round counter,
+        the ledger's running sum the schedule's spend), write its residual
+        slice, this round's bank lanes and counts back, charge the
+        ledger."""
         ks = rounds.split_round_key(round_key)
         sel = rounds.sample_cohort(ks[rounds.ROUND_KEY_LANES["selection"]],
                                    self.cfg.num_clients,
@@ -138,7 +147,7 @@ class Trainer:
         new_params, metrics, new_res_sel, delta_hat, new_chan = \
             self._cohort_core(params, power_limits[sel], data_x[sel],
                               data_y[sel], ks, res_sel, prev_delta, chan,
-                              sel)
+                              sel, t, ledger.eps_sum)
         lanes = bank_lib.cohort_lane_keys(
             ks[rounds.ROUND_KEY_LANES["bank"]], sel)
         new_bank = self.bank.scatter(bank, sel, new_res_sel, lanes)
@@ -158,7 +167,8 @@ class Trainer:
             return self._streamed_step(state, data_x, data_y)
         params, metrics, bank, delta_hat, chan, ledger = self._bank_round(
             state.params, state.power_limits, state.bank, state.prev_delta,
-            state.chan, state.ledger, data_x, data_y, state.key)
+            state.chan, state.ledger, data_x, data_y, state.key,
+            state.round)
         return self._advance(state, 1, params, bank, delta_hat, ledger,
                              chan), metrics
 
@@ -193,7 +203,7 @@ class Trainer:
         for i, round_key in enumerate(prng.split(state.key, t)):
             params, metrics, bank, prev, chan, ledger = self._bank_round(
                 params, state.power_limits, bank, prev, chan, ledger,
-                data_x, data_y, round_key)
+                data_x, data_y, round_key, state.round + i)
             per_round.append(metrics)
             if on_round is not None:
                 on_round(i, metrics)
@@ -239,7 +249,7 @@ class Trainer:
                 res_sel = res_sel.to(self.device, non_blocking=True)
             params, metrics, new_res_sel, prev, chan = self._cohort_core(
                 params, state.power_limits[sel], cx, cy, ks, res_sel, prev,
-                chan, sel)
+                chan, sel, state.round + ti, ledger.eps_sum)
             ledger, metrics = self._spend(ledger, metrics)
             lanes = bank_lib.cohort_lane_keys(ks[lanes_of["bank"]], sel)
             bank = self.bank.scatter(bank, sels_host[ti], new_res_sel, lanes)

@@ -3,8 +3,9 @@
 
 One round: split the round key into 7 lanes, sample r of n clients, run
 tau steps of local training per client (plus the error-feedback residual
-if enabled), draw the block-fading gains and, for AirComp schemes, the
-support and beta, aggregate (over the simulated MAC through the fused
+if enabled), step the channel model (gains, optional transmit mask) and,
+for AirComp schemes, draw the compressor's support and design beta,
+clip and encode, aggregate (over the simulated MAC through the fused
 kernels or the unfused plain path, or digitally on the server), update
 the residual memory and the server model.
 """
@@ -53,54 +54,57 @@ def init_power_limits(key, cfg: PFELSConfig, d: int) -> torch.Tensor:
 
 
 def check_ported(cfg: PFELSConfig) -> None:
-    """Raise for every option this port does not run yet, naming the
-    ROADMAP item that will bring it; nothing silently runs something
-    else."""
-    todo = []
-    if cfg.channel.model != "block_fading":
-        todo.append((f"channel.model={cfg.channel.model!r}", 9))
-    if cfg.compressor != "rand_k":
-        todo.append((f"compressor={cfg.compressor!r}", 10))
-    if cfg.schedule.mode != "none":
-        todo.append((f"schedule.mode={cfg.schedule.mode!r}", 10))
+    """Raise for an option this port does not run yet (the sharded cohort,
+    ROADMAP Queue 1 item 11), naming the ROADMAP item; nothing silently
+    runs something else."""
     if cfg.client_sharding != "none":
-        todo.append((f"client_sharding={cfg.client_sharding!r}", 11))
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(
-            f"{what} (ROADMAP Queue 1, item {item})" for what, item in todo))
+        raise NotImplementedError(
+            f"not ported yet: client_sharding={cfg.client_sharding!r} "
+            f"(ROADMAP Queue 1, item 11)")
 
 
 def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
                       unravel: Unravel):
     """The round body on cohort slices: ``cohort_core(params, p_sel, cx,
-    cy, ks, res_sel, prev_delta, chan_carry, sel) -> (new_params,
-    metrics, new_res_sel, delta_hat, new_chan_carry)``, where ``p_sel``
-    (r,), ``cx``/``cy`` (r, samples, ...) and ``res_sel`` (r, d) or None
-    are the sampled clients' slices and ``ks`` is the ``split_round_key``
-    output (lanes 1-4 and 6 are consumed here; the selection and bank
-    lanes belong to the caller).
+    cy, ks, res_sel, prev_delta, chan_carry, sel, t, eps_spent) ->
+    (new_params, metrics, new_res_sel, delta_hat, new_chan_carry)``, where
+    ``p_sel`` (r,), ``cx``/``cy`` (r, samples, ...) and ``res_sel`` (r, d)
+    or None are the sampled clients' slices, ``ks`` is the
+    ``split_round_key`` output (lanes 1-4 and 6 are consumed here; the
+    selection and bank lanes belong to the caller), ``chan_carry`` the
+    channel model's state and ``sel`` the sampled ids. ``t`` (the round
+    counter) and ``eps_spent`` (the ledger's running sum), int32 and f32
+    device scalars, drive the compression schedule.
 
-    AirComp schemes (pfels, wfl_*) draw a support and a beta and
-    aggregate over the simulated MAC; digital ones (dp_fedavg, fedavg)
+    The channel model draws the gains (and may mask transmissions); for
+    AirComp schemes (pfels, wfl_*) the compressor gives the support and
+    beta is designed from the gains the devices observe, with dropped
+    clients lifted out of the min. Digital schemes (dp_fedavg, fedavg)
     aggregate on the server from the ``channel_noise`` lane, with beta =
-    energy = 0 and d subcarriers. With error feedback each client's
-    residual is added to its update before the transmit, the transmit
-    clip (if set) is applied here rather than in the aggregator, and the
-    new residual is the update minus what was put on the air."""
+    energy = 0 and d subcarriers. With error feedback (or a compressor
+    that requires it) each client's residual is added to its update
+    before the transmit, and the new residual is the update minus what
+    was put on the air."""
     k_coords = max(int(round(cfg.compression_ratio * d)), 1)
     alg = algorithms.get_algorithm(cfg.algorithm)
     chan_model = channels.get_channel_model(cfg.channel.model)
     sigma0 = chan_model.noise_std(cfg.channel)
+    has_mask = chan_model.may_mask(cfg.channel)
     r = cfg.clients_per_round
     aircomp = alg.aircomp
     # the compressor applies only to sparsifying AirComp schemes (pfels)
     comp = (compressors.get_compressor(cfg.compressor)
             if aircomp and alg.sparsifies_transmit else None)
+    sched = cfg.schedule
+    sched_on = comp is not None and compressors.schedules.is_active(sched)
+    has_encode = comp is not None and comp.encode is not None
+    # carry compressors (top_k_ef) force error feedback on
+    ef_on = cfg.error_feedback or (comp is not None and comp.carry(cfg))
     c1_scale = comp.sensitivity(cfg, d) if comp is not None else 1.0
-    ef_on = cfg.error_feedback
-    # error feedback needs the clip scales for the residual, so the clip
-    # is applied once here and the aggregator gets clip=None
-    pre_clip = cfg.transmit_clip is not None and ef_on
+    # encode must see the clipped update, and error feedback needs the
+    # clip scales for the residual: both apply the clip here and hand the
+    # aggregator clip=None
+    pre_clip = cfg.transmit_clip is not None and (ef_on or has_encode)
 
     def client_updates(params, flat_params, cx, cy, ck):
         """Local training (Alg. 2 lines 5-11) of each sampled client ->
@@ -117,25 +121,52 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
             torch.sub(ravel(new_params), flat_params, out=flat[i])
         return flat, losses
 
+    def support_and_beta(gains_design, p_sel, prev_delta, key, t,
+                         eps_spent):
+        """Support omega_t and beta. Under a schedule, ``t`` and
+        ``eps_spent`` anneal the live-slot column (ANDed into the
+        support), the power limits and the per-round epsilon ceiling."""
+        sup = compressors.as_support(
+            alg.select_support(cfg, d, k_coords, prev_delta, key))
+        eps_t = None
+        if sched_on:
+            ka = compressors.schedules.k_active(sched, cfg, k_coords, t)
+            if ka is not None:
+                sup = compressors.and_active(sup, ka)
+            ps = compressors.schedules.power_scale(sched, cfg, t)
+            if ps is not None:
+                p_sel = p_sel * ps
+            eps_t = compressors.schedules.epsilon_round(sched, cfg, t,
+                                                        eps_spent)
+        k_used = compressors.support_size(sup)
+        beta = alg.design_beta(cfg, gains_design, p_sel, d, k_used,
+                               epsilon=eps_t, c1_scale=c1_scale)
+        return sup, beta, k_used
+
     def cohort_core(params, p_sel, cx, cy, ks, res_sel=None,
-                    prev_delta=None, chan_carry=None, sel=None):
+                    prev_delta=None, chan_carry=None, sel=None, t=None,
+                    eps_spent=None):
         ck = prng.split(ks[ROUND_KEY_LANES["client_train"]], r)
 
         new_chan_carry, cr = chan_model.step(
             chan_carry, cfg.channel, r, sel,
             ks[ROUND_KEY_LANES["gains"]], ks[ROUND_KEY_LANES["csi"]])
+        if cr.tx_mask is not None and not has_mask:
+            raise ValueError(
+                f"channel model {chan_model.name!r} returned a tx_mask "
+                f"but its may_mask(cfg) hook says False: the mask is "
+                f"plumbed only where may_mask says so")
         gains = cr.gains
+        tx_mask = cr.tx_mask
 
-        # support omega_t and beta from the observed gains
+        # support omega_t and beta from the observed gains, dropped
+        # clients lifted out of the min
         sup = beta = None
         k_used = d
         if aircomp:
-            sup = compressors.as_support(alg.select_support(
-                cfg, d, k_coords, prev_delta,
-                ks[ROUND_KEY_LANES["support"]]))
-            k_used = compressors.support_size(sup)
-            beta = alg.design_beta(cfg, channels.design_gains(cr), p_sel, d,
-                                   k_used, c1_scale=c1_scale)
+            sup, beta, k_used = support_and_beta(
+                channels.design_gains(cr), p_sel, prev_delta,
+                ks[ROUND_KEY_LANES["support"]], t, eps_spent)
 
         # local training, plus the residual memory under error feedback
         use_ef = ef_on and res_sel is not None
@@ -158,24 +189,50 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
                 tx_full = flat_updates * transmit_ref.clip_scales(
                     flat_updates, cfg.transmit_clip)[:, None]
                 agg_clip = None
+            if has_encode:
+                # the per-client rounding keys fork off the support lane
+                qk = prng.split(prng.fold_in(
+                    ks[ROUND_KEY_LANES["support"]],
+                    compressors.QUANT_STREAM_TAG), r)
+                tx_full = comp.encode(cfg, tx_full, qk)
             agg_kw = dict(
                 d=d, sigma0=sigma0, r=r,
                 unbiased_rescale=cfg.unbiased_rescale,
                 gains_est=(cr.gains_obs if cfg.channel.csi_error > 0
                            else None),
-                clip=agg_clip, tx_mask=cr.tx_mask, active=sup.active)
+                clip=agg_clip, tx_mask=tx_mask, active=sup.active)
             if cfg.use_fused_kernel:
-                delta_hat, energy, _ = aggregation.aircomp_aggregate_fused(
-                    tx_full, sup.idx, gains, beta, noise_key,
-                    gains_ant=cr.gains_ant, **agg_kw)
+                # the transmit mask and the per-antenna gains ride the
+                # kernel in-tile
+                delta_hat, energy, y_agg = \
+                    aggregation.aircomp_aggregate_fused(
+                        tx_full, sup.idx, gains, beta, noise_key,
+                        gains_ant=cr.gains_ant, **agg_kw)
             else:
-                delta_hat, energy, _ = aggregation.aircomp_aggregate(
+                delta_hat, energy, y_agg = aggregation.aircomp_aggregate(
                     tx_full, sup.idx, gains, beta, noise_key, **agg_kw)
+            if comp is not None and comp.decode is not None:
+                # a custom reconstruction replaces A^T y; the 1/(r beta)
+                # unscale and the d/k unbiasing stay the round's
+                delta_hat = comp.decode(cfg, y_agg, sup, d) / (
+                    aggregation.realized_r(tx_mask, r) * beta)
+                if cfg.unbiased_rescale:
+                    delta_hat = delta_hat * (d / k_coords)
         else:
-            # digital server-side aggregation (the channel's transmit mask
-            # and its realized-r rescale come with the dropout channel)
-            delta_hat = alg.server_aggregate(cfg, flat_updates, noise_key,
-                                             d=d, r=r)
+            # digital server-side aggregation; a dropped client uploads
+            # nothing here too
+            agg_in = (flat_updates * tx_mask[:, None]
+                      if tx_mask is not None else flat_updates)
+            delta_hat = alg.server_aggregate(cfg, agg_in, noise_key, d=d,
+                                             r=r)
+            if tx_mask is not None:
+                # the hook averaged over the nominal r: rescale to the
+                # mean of the updates received, and apply no update when
+                # every client dropped
+                delta_hat = torch.where(
+                    torch.sum(tx_mask) > 0,
+                    delta_hat * (r / aggregation.realized_r(tx_mask, r)),
+                    torch.zeros_like(delta_hat))
             beta = torch.zeros((), dtype=torch.float32,
                                device=flat_params.device)
             energy = torch.zeros_like(beta)
@@ -183,12 +240,15 @@ def build_cohort_core(cfg: PFELSConfig, loss_fn: Callable, d: int,
                        subcarriers=torch.as_tensor(
                            k_used, device=flat_params.device))
 
-        # error-feedback memory: e_i <- u_i - A^T A (s_i u_i), the update
-        # minus what was actually sent (clipped, projected on the support)
+        # error-feedback memory: e_i <- u_i - A^T A q(s_i u_i), the update
+        # minus what was actually sent (clipped, encoded, projected on the
+        # live support); a dropped client sent nothing
         new_res_sel = res_sel
         if use_ef:
             transmitted = (compressors.sparsify(tx_full, sup, d)
                            if alg.sparsifies_transmit else tx_full)
+            if tx_mask is not None:
+                transmitted = transmitted * tx_mask[:, None]
             new_res_sel = flat_updates - transmitted
 
         # server update (line 16)

@@ -9,10 +9,11 @@ delta) ledger lives in the ``TrainState``. The CLI runs on the card;
   PYTHONPATH=src python -m repro_torch.launch.train --model cnn \\
       --bank streamed --clients 100000 --rounds 3 --eval-every 3
 
-The flags, defaults and output JSON are the reference's. An option the
-reference offers and the port does not run yet (another channel model,
-compressor or schedule) raises ``NotImplementedError`` naming its ROADMAP
-item before any data is made.
+The flags, defaults and output JSON are the reference's, every channel
+model, compressor and schedule included:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --channel mimo_mrc \\
+      --antennas 8 --compressor top_k_ef --schedule budget --eps-floor 0.1
 """
 from __future__ import annotations
 
@@ -29,14 +30,8 @@ from repro_torch.core.channels import list_channel_models
 from repro_torch.core.compressors import list_compressors
 from repro_torch.data import (make_federated_classification,
                               make_population_source)
-from repro_torch.fl import Trainer, list_algorithms, rounds
+from repro_torch.fl import Trainer, list_algorithms
 from repro_torch.models import cnn
-
-# the reference's registry names; the port's registries hold those ported
-# so far, and ``rounds.check_ported`` refuses the rest by ROADMAP item
-REFERENCE_CHANNEL_MODELS = ("block_fading", "dropout", "markov_fading",
-                            "mimo_mrc")
-REFERENCE_COMPRESSORS = ("rand_k", "stoch_quant", "threshold", "top_k_ef")
 
 
 def run_simulation(args, device="cuda"):
@@ -70,7 +65,6 @@ def run_simulation(args, device="cuda"):
             mode=args.schedule, k_end_ratio=args.k_end_ratio,
             power_end=args.power_end, eps_floor=args.eps_floor),
         channel=chan)
-    rounds.check_ported(cfg)
     image_shape = (model_cfg.in_channels, model_cfg.image_size,
                    model_cfg.image_size)
     if args.bank == "streamed" and args.dirichlet_alpha is None:
@@ -143,11 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-sigma", type=float, default=1.0)
     ap.add_argument("--dirichlet-alpha", type=float, default=None)
     ap.add_argument("--channel", default="block_fading",
-                    choices=sorted(set(list_channel_models())
-                                   | set(REFERENCE_CHANNEL_MODELS)),
-                    help="wireless scenario: block_fading is the paper's "
-                         "i.i.d. flat fading (the only one ported yet; the "
-                         "others raise, ROADMAP Queue 1, item 9)")
+                    choices=list_channel_models(),
+                    help="wireless scenario from the "
+                         "repro_torch.core.channels registry (block_fading "
+                         "is the paper's i.i.d. flat fading)")
     ap.add_argument("--antennas", type=int, default=4,
                     help="M receive antennas (mimo_mrc)")
     ap.add_argument("--markov-rho", type=float, default=0.9,
@@ -155,24 +148,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dropout-prob", type=float, default=0.1,
                     help="per-round transmission dropout probability")
     ap.add_argument("--compressor", default="rand_k",
-                    choices=sorted(set(list_compressors())
-                                   | set(REFERENCE_COMPRESSORS)),
-                    help="update compressor: rand_k is the paper's "
-                         "sparsifier (the only one ported yet; the others "
-                         "raise, ROADMAP Queue 1, item 10)")
+                    choices=list_compressors(),
+                    help="update compressor from the "
+                         "repro_torch.core.compressors registry (rand_k is "
+                         "the paper's sparsifier)")
     ap.add_argument("--quant-bits", type=int, default=8,
                     help="signed quantization bits (stoch_quant)")
     ap.add_argument("--threshold-frac", type=float, default=0.1,
                     help="live-coordinate threshold as a fraction of "
                          "max|delta_hat| (threshold)")
     ap.add_argument("--error-feedback", action="store_true",
-                    help="per-client error-feedback residual memory")
+                    help="per-client error-feedback residual memory "
+                         "(forced on by carry compressors like top_k_ef)")
     ap.add_argument("--transmit-clip", type=float, default=None,
                     help="per-client l2 cap on the transmitted update")
     ap.add_argument("--schedule", default="none",
                     choices=["none", "linear", "budget"],
-                    help="CompressionSchedule mode ('linear' and 'budget' "
-                         "raise: ROADMAP Queue 1, item 10)")
+                    help="CompressionSchedule mode (k / power anneal; "
+                         "'budget' also paces the per-round epsilon)")
     ap.add_argument("--k-end-ratio", type=float, default=1.0,
                     help="final live fraction of the k budget (schedule)")
     ap.add_argument("--power-end", type=float, default=1.0,

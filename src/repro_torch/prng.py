@@ -15,9 +15,9 @@ would: one row a key.
 
 What is exact and what is not:
 
-- ``split``, ``fold_in``, ``bits``, ``uniform``, ``randint``,
-  ``permutation`` and ``choice`` are integer (or exactly-rounded) ops and
-  match bit for bit.
+- ``split``, ``fold_in``, ``bits``, ``uniform``, ``bernoulli``,
+  ``randint``, ``permutation`` and ``choice`` are integer (or
+  exactly-rounded) ops and match bit for bit.
 - ``uniform`` with a range other than [0, 1) and the erfinv polynomial
   round ``a * b + c`` once, as XLA's CPU backend fuses them into FMAs
   (:func:`fma_f32`).
@@ -275,8 +275,12 @@ _NORMAL_LO = -1.0 + 2.0 ** -24          # nextafter(-1, 0) in f32
 _SQRT2_F32 = _f32(math.sqrt(2.0))
 
 
+def _bits_to_erfinv(b: torch.Tensor) -> torch.Tensor:
+    return erfinv_f32(_affine(_bits_to_unit(b), _NORMAL_LO, 1.0))
+
+
 def _bits_to_normal(b: torch.Tensor) -> torch.Tensor:
-    return _SQRT2_F32 * erfinv_f32(_affine(_bits_to_unit(b), _NORMAL_LO, 1.0))
+    return _SQRT2_F32 * _bits_to_erfinv(b)
 
 
 def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
@@ -286,9 +290,29 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     return z.reshape(key.shape[:-1] + shape)
 
 
+def normal_fma(key: torch.Tensor, shape: Shape, scale: float,
+               addend: torch.Tensor) -> torch.Tensor:
+    """``addend + scale * normal(key, shape)`` as XLA's CPU backend
+    computes it where the reference adds a scaled draw to another array
+    (the receiver noise onto the superposed signal): the erfinv value
+    times one constant, ``f32(sqrt 2) * f32(scale)`` folded in f32, added
+    with one rounding."""
+    shape = _shape(shape)
+    w = _hash_counts(key, math.prod(shape), _bits_to_erfinv, torch.float32)
+    c = _f32(_SQRT2_F32 * _f32(scale))
+    return fma_f32(w.reshape(key.shape[:-1] + shape), c, addend)
+
+
 def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.exponential`` (f32): -log1p(-U[0, 1))."""
     return -torch.log1p(-uniform(key, shape))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.bernoulli`` (bool): ``uniform(key, shape) < p``, with
+    p rounded to f32 first as JAX does."""
+    u = uniform(key, shape)
+    return u < torch.tensor(_f32(p), dtype=torch.float32, device=u.device)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int

@@ -104,6 +104,28 @@ def test_fused_transmit_on_card_matches_unfused(cuda, clip):
     torch.testing.assert_close(y_f, y_u, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("m", [4, 8])
+def test_fused_combine_scenario_inputs_match_plain(cuda, m):
+    """The scenarios' inputs at a ragged d: an (r, M) antenna matrix
+    (mimo_mrc), a quarter of the clients dropped (dropout) and a mask
+    whose support has switched-off slots, which carry neither signal nor
+    noise (threshold, the k schedule)."""
+    r, d = 32, 8192 * 5 + 77
+    u, mask, z, gains, tx, txm = _inputs(r, d, m, cuda, seed=m)
+    txm[::4] = 0.0
+    g = torch.Generator(device=cuda).manual_seed(m + 1)
+    live = (torch.rand((d,), generator=g, device=cuda) < 0.5).float()
+    mask, z = mask * live, z * live
+    args = (u, mask, z, gains, tx, txm)
+    (y1, e1), (y2, e2) = kernel.fused_combine(*args), \
+        kernel.fused_combine(*args)
+    y_p, e_p = ref.fused_combine_ref(*args)
+    _assert_y_close(y1, y_p)
+    torch.testing.assert_close(e1, e_p, rtol=RTOL, atol=0.0)
+    assert torch.equal(y1, y2) and torch.equal(e1, e2)
+    assert not y1[mask == 0].any()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     u, mask, z, gains, tx, txm = _inputs(3, 1000, 1, cuda)
     with pytest.raises(TypeError, match="float32"):

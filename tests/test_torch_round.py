@@ -33,7 +33,7 @@ from repro.fl.api import replace as jreplace  # noqa: E402
 from repro_torch import convert, prng  # noqa: E402
 from repro_torch.core import privacy  # noqa: E402
 from repro_torch.configs import (BENCH_MLP, ChannelConfig,  # noqa: E402
-                                 CompressionSchedule, PFELSConfig)
+                                 PFELSConfig)
 from repro_torch.data import make_federated_classification  # noqa: E402
 from repro_torch.fl import Trainer, replace  # noqa: E402
 from repro_torch.kernels.pfels_transmit import ref as tref  # noqa: E402
@@ -230,20 +230,7 @@ def test_step_and_carried_state_match_reference():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(channel=ChannelConfig(model="dropout")), "item 9"),
-    (dict(channel=ChannelConfig(model="mimo_mrc")), "item 9"),
-    (dict(compressor="threshold"), "item 10"),
-    (dict(compressor="stoch_quant"), "item 10"),
-    (dict(channel=ChannelConfig(model="markov_fading")), "item 9"),
-    (dict(compressor="top_k_ef"), "item 10"),
-    (dict(schedule=CompressionSchedule(mode="linear")), "item 10"),
     (dict(client_sharding="cohort"), "item 11"),
-    (dict(schedule=CompressionSchedule(mode="linear"), error_feedback=True),
-     "item 10"),
-    (dict(schedule=CompressionSchedule(mode="budget")), "item 10"),
-    (dict(bank_backend="streamed", channel=ChannelConfig(model="dropout")),
-     "item 9"),
-    (dict(bank_backend="streamed", compressor="top_k_ef"), "item 10"),
     (dict(bank_backend="streamed", client_sharding="cohort"), "item 11"),
 ])
 def test_unported_options_raise(override, item):

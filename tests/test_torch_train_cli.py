@@ -1,8 +1,8 @@
 """The port's training entry point (``repro_torch.launch.train``) against
 the reference's (``repro.launch.train``) on the CPU: the same namespace
 through both ``run_simulation``s, comparing ``history``, ``energy_total``
-and ``privacy`` (not ``wall_s``); and the options the port does not run
-yet, which raise ``NotImplementedError`` naming their ROADMAP item.
+and ``privacy`` (not ``wall_s``), for the paper's defaults and for a
+channel model, a compressor and a schedule of the reference's registries.
 
 Tolerance: the rtol 2e-6 of ``tests/test_torch_round.py`` on losses,
 energies and privacy totals (measured at most 1.3e-7); test accuracies
@@ -54,7 +54,11 @@ def _reference(argv, monkeypatch):
     [], ["--dirichlet-alpha", "0.5"], ["--bank", "streamed"],
     ["--bank", "streamed", "--error-feedback", "--transmit-clip", "0.5"],
     ["--algorithm", "wfl_pdp", "--dirichlet-alpha", "0.3"],
-], ids=["default", "dirichlet", "streamed", "streamed_ef", "wfl_pdp"])
+    ["--channel", "mimo_mrc", "--antennas", "8"],
+    ["--compressor", "top_k_ef", "--transmit-clip", "0.5"],
+    ["--schedule", "budget", "--eps-floor", "0.1"],
+], ids=["default", "dirichlet", "streamed", "streamed_ef", "wfl_pdp",
+        "mimo_mrc", "top_k_ef", "budget"])
 def test_run_simulation_matches_reference(extra, monkeypatch, tmp_path):
     argv = TINY + extra + ["--out", str(tmp_path / "port.json")]
     got = ttrain.run_simulation(ttrain.build_parser().parse_args(argv),
@@ -111,25 +115,3 @@ def _reference_parser():
     finally:
         argparse.ArgumentParser.parse_args = real
     return seen["p"]
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--channel", "mimo_mrc"], "item 9"),
-    (["--channel", "dropout", "--bank", "streamed"], "item 9"),
-    (["--channel", "markov_fading"], "item 9"),
-    (["--compressor", "top_k_ef"], "item 10"),
-    (["--compressor", "stoch_quant", "--error-feedback"], "item 10"),
-    (["--schedule", "linear", "--error-feedback"], "item 10"),
-    (["--schedule", "budget"], "item 10"),
-])
-def test_unported_cli_options_raise(extra, item, monkeypatch):
-    """Before any data is made: ``make_federated_classification`` and
-    ``make_population_source`` are never reached."""
-    def never(*a, **kw):
-        raise AssertionError("data made before the option was refused")
-
-    monkeypatch.setattr(ttrain, "make_federated_classification", never)
-    monkeypatch.setattr(ttrain, "make_population_source", never)
-    args = ttrain.build_parser().parse_args(TINY + extra)
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.run_simulation(args, device="cpu")
