@@ -111,6 +111,21 @@ Phases, each printing one JSON line:
    in-vocabulary tokens; then three warm zamba2-2.7b prefills and one
    more under the profiler: its device time, and each LLM kernel's device
    ms and share of it.
+15. ``llm_train``: PFELS as the optimizer of one transformer that is one
+   FL client (``repro_torch.launch.steps.make_pfels_train_step``). First
+   one step of the reduced zamba2-2.7b in f32 on the card against the CPU
+   route, at the CPU tests' tolerances. Then zamba2-2.7b at full width and
+   depth (bf16, random weights from seed 0, the reference example's
+   settings: p = 0.5, eps = 4, eta = 0.1, ``scaled_channel(d)``), batch 8 x
+   512 tokens drawn by ``make_lm_sequences`` on the card: 3 steps at
+   tau = 1 and 1 at tau = 2, s/step, peak memory, the ``clip_norm``
+   launches (zeroed just before, read just after; they must equal the sum
+   of tau: the clip runs once a local step over the whole gradient as one
+   flat f32 buffer), finite metrics and params, and the masks' density
+   within 1% of p; with ``--profile`` one more tau = 1 step profiled
+   (device idle share) and its parts timed one by one; last ``clip_norm``
+   at the gradient's flat size (2.9e9 f32 elements) against its plain
+   version, timed beside its bound and ``vector_norm``.
 
 ``--time-ssd`` runs the device phase and then only times ``ssd_scan`` at
 the two serving prefills (bf16, warm and cold L2) and three warm
@@ -2644,6 +2659,302 @@ def phase_serve(profile: bool):
     return launches_of["zamba2-2.7b"]
 
 
+# ----------------------------------------------------------- llm_train
+
+# the production step's settings: the reference example's
+# (examples/llm_finetune_fl.py) at zamba2-2.7b's full width; tau of each
+# timed step in order
+LLM_TRAIN_TAUS = (1, 1, 1, 2)
+LLM_TRAIN_BATCH, LLM_TRAIN_SEQ = 8, 512
+# the reduced config's step on the card against the CPU route, at the
+# CPU tests' tolerances (tests/test_torch_llm_train.py): metrics 1e-5
+# relative; theta 1e-4 of the leaf's largest update plus one f32 ulp
+LLM_METRIC_RTOL, LLM_THETA_OF_UPDATE = 1e-5, 1e-4
+# the masks' density: Bernoulli(p) over 2.9e9 coordinates, within 1% of p
+LLM_MASK_DENSITY_TOL = 0.01
+
+
+def _pfels_llm_config(d, tau):
+    from repro_torch.configs import PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    return PFELSConfig(num_clients=1000, clients_per_round=1,
+                       compression_ratio=0.5, epsilon=4.0, local_lr=0.1,
+                       local_steps=tau, channel=scaled_channel(d))
+
+
+def _lm_batch(data, key, batch):
+    """The example's draw: ``batch`` sequences of ``data`` at randint
+    indices, split into tokens and next-token labels."""
+    from repro_torch import prng
+    seqs = data[prng.randint(key, (batch,), 0, data.shape[0])].long()
+    return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+
+
+def llm_train_parity():
+    """One production step of the reduced zamba2-2.7b in f32 on the card
+    (the clip kernel) against the CPU route (its plain version), from the
+    same params, batch and key."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import convert, prng
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import make_lm_sequences
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.launch.steps import make_pfels_train_step
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(reduced_config("zamba2-2.7b"),
+                              dtype="float32", param_dtype="float32")
+    params = T.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+    d = T.param_count(params)
+    data = make_lm_sequences(prng.PRNGKey(1, "cpu"), n_seqs=16, seq_len=65,
+                             vocab=cfg.vocab_size)
+    batch = _lm_batch(data, prng.PRNGKey(2, "cpu"), 8)
+    step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1), d)
+    out = {}
+    clip_kernel.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        new, m = step(_tree_to(params, dev), _tree_to(batch, dev),
+                      prng.PRNGKey(3, dev))
+        out[dev] = (dict(convert._walk(_tree_to(new, "cpu"))),
+                    {k: float(v) for k, v in m.items()})
+        if dev == "cuda":
+            launches = clip_kernel.LAUNCHES["clip_norm"]
+    (tc, mc), (tp, mp) = out["cuda"], out["cpu"]
+    metric_gaps = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+                   for k in ("loss", "grad_norm", "beta", "energy")}
+    worst = 0.0
+    for name, before in convert._walk(params):
+        want = tp[name].float().numpy()
+        scale = float(np.abs(want - before.float().numpy()).max())
+        gap = np.abs(tc[name].float().numpy() - want)
+        limit = LLM_THETA_OF_UPDATE * scale + np.spacing(np.abs(want))
+        worst = max(worst, float((gap / limit).max()))
+    line = {"phase": "llm_train", "part": "reduced parity on the card",
+            "arch": cfg.name, "dtype": cfg.dtype, "d": d,
+            "launches_on_card": {"clip_norm": launches},
+            "metric_rel_gaps": metric_gaps,
+            "theta_gap_over_limit": worst,
+            "tolerance": f"metrics {LLM_METRIC_RTOL} relative; theta "
+                         f"{LLM_THETA_OF_UPDATE} of the leaf's largest "
+                         f"update plus one f32 ulp"}
+    emit(line)
+    failures = []
+    if launches != 1:
+        failures.append(f"reduced step launched clip_norm {launches} "
+                        f"times, expected 1")
+    if not (max(metric_gaps.values()) <= LLM_METRIC_RTOL and worst <= 1.0):
+        failures.append("reduced step: the card and the CPU disagree")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def check_clip_flat(n, seed):
+    """``clip_norm`` on a flat f32 vector of ``n`` elements (zamba2-2.7b's
+    gradient, padded to whole rows): against its plain version (compared
+    in slices, so that no full-size difference is held), bit-identical run
+    to run, timed beside the plain version and ``vector_norm``. At 11.6 GB
+    x cannot stay on chip between the passes: the bound counts x read once
+    and out written once all the same."""
+    import torch
+    from repro_torch.kernels.clip_norm import kernel, ref
+    clip = 1.0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n // 128, 128), generator=g, device="cuda")
+    x.mul_(1e-4)
+    o1, n1 = kernel.clip_norm(x, clip)
+    o_p, n_p = ref.clip_norm_ref(x, clip)
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    step = 1 << 26
+    f1, fp = o1.view(-1), o_p.view(-1)
+    for a in range(0, n, step):
+        diff = (f1[a:a + step] - fp[a:a + step]).abs()
+        err = max(err, float(diff.max()))
+        rel = max(rel, float((diff / fp[a:a + step].abs().clamp_min(
+            1e-30)).max()))
+    del o_p, f1, fp
+    o2, n2 = kernel.clip_norm(x, clip)
+    bit = bool(torch.equal(o1, o2) and torch.equal(n1, n2))
+    del o1, o2
+    norm_rel = abs(float(n1) - float(n_p)) / float(n_p)
+    fns = {"kernel": lambda: kernel.clip_norm(x, clip),
+           "plain": lambda: ref.clip_norm_ref(x, clip),
+           "library_first_pass": lambda: torch.linalg.vector_norm(x)}
+    times = {k: time_ms(f, reps=10, warmup=2) for k, f in fns.items()}
+    n_bytes = 2 * n * 4 + 4
+    bound, by = bound_ms(n_bytes, 3.0 * n)
+    line = {"phase": "kernels", "kernel": "clip_norm",
+            "shape": {"R": n // 128, "lanes": 128, "elements": n},
+            "dtype": "float32", "what": "zamba2-2.7b's flat gradient",
+            "clip": clip, "norm": float(n1), "norm_rel_gap": norm_rel,
+            "out_max_rel_gap": rel, "out_max_abs_err": err,
+            "bit_identical": bit, "times_ms": times, "bytes": n_bytes,
+            "bound_ms": bound, "share_of_bound": bound / times["kernel"],
+            "tolerance": f"norm 1e-6 relative; output "
+                         f"{CLIP_OUT_TOL['float32']} relative",
+            "library": "torch.linalg.vector_norm: the first pass (the "
+                       "norm) only"}
+    emit(line)
+    del x
+    torch.cuda.empty_cache()
+    if not (norm_rel <= 1e-6 and rel <= CLIP_OUT_TOL["float32"] and bit):
+        raise AssertionError(f"clip_norm at {n} elements: norm gap "
+                             f"{norm_rel}, output gap {rel}, bit-identical "
+                             f"{bit}")
+    return {"max_abs_err": err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": times["library_first_pass"],
+            "elements": n}
+
+
+def phase_llm_train(profile: bool):
+    """PFELS as the optimizer of zamba2-2.7b at full width and depth
+    (bf16, random weights from seed 0; the example's settings, batch 8 x
+    512 tokens drawn by ``make_lm_sequences`` on the card): 3 steps at
+    tau = 1 and 1 at tau = 2, timed; the clip_norm launches (zeroed just
+    before, read just after) must equal the sum of tau; the metrics finite
+    and the masks' density within 1% of p. With ``profile``, one more
+    tau = 1 step profiled and its parts timed one by one. First the
+    reduced config's step against the CPU; last the clip kernel at the
+    gradient's flat size. Returns (clip_norm launches, the kernel's
+    summary entry)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import randk
+    from repro_torch.data import make_lm_sequences
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.launch.steps import make_pfels_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    llm_train_parity()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("zamba2-2.7b")
+    key = prng.PRNGKey(0)
+    t0 = time.perf_counter()
+    params = T.init_params(key, cfg)
+    d = T.param_count(params)
+    data = make_lm_sequences(prng.PRNGKey(1), n_seqs=2 * LLM_TRAIN_BATCH,
+                             seq_len=LLM_TRAIN_SEQ + 1, vocab=cfg.vocab_size)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pfels = {tau: _pfels_llm_config(d, tau) for tau in set(LLM_TRAIN_TAUS)}
+    steps = {tau: make_pfels_train_step(cfg, pf, d)
+             for tau, pf in pfels.items()}
+    keys = [prng.fold_in(key, i) for i in range(len(LLM_TRAIN_TAUS))]
+    batches = [_lm_batch(data, k, LLM_TRAIN_BATCH) for k in keys]
+    torch.cuda.synchronize()
+    clip_kernel.reset_launch_counts()
+    secs, metrics = [], []
+    for tau, batch, k in zip(LLM_TRAIN_TAUS, batches, keys):
+        t0 = time.perf_counter()
+        params, m = steps[tau](params, batch, k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({n: float(v) for n, v in m.items()})
+    launches = clip_kernel.LAUNCHES["clip_norm"]
+    peak = torch.cuda.max_memory_allocated()
+    finite_params = all(bool(torch.isfinite(x).all())
+                        for x in tree_leaves(params))
+    finite = all(math.isfinite(m[n]) for m in metrics
+                 for n in ("loss", "grad_norm", "beta", "energy"))
+    # the last step's masks, drawn again from its key
+    _, km, _ = prng.split(keys[-1], 3)
+    masks = randk.mask_tree(km, params, pfels[1].compression_ratio)
+    density = float(sum(torch.count_nonzero(m) for m in
+                        tree_leaves(masks))) / d
+    del masks
+    smi = nvidia_smi()
+    line = {"phase": "llm_train", "part": "full width", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "d": d, "batch": LLM_TRAIN_BATCH,
+            "seq": LLM_TRAIN_SEQ, "taus": list(LLM_TRAIN_TAUS),
+            "compression_ratio": pfels[1].compression_ratio,
+            "setup_s": setup_s, "s_per_step": secs,
+            "peak_memory_bytes": peak,
+            "launches": {"clip_norm": launches},
+            "launches_expected": {"clip_norm": sum(LLM_TRAIN_TAUS)},
+            "metrics": metrics, "finite_metrics": finite,
+            "finite_params": finite_params, "mask_density": density,
+            "nvidia_smi": smi}
+    emit(line)
+    failures = []
+    if launches != sum(LLM_TRAIN_TAUS):
+        failures.append(f"clip_norm launched {launches} times, expected "
+                        f"{sum(LLM_TRAIN_TAUS)}")
+    if not (finite and finite_params):
+        failures.append("non-finite metrics or params")
+    p = pfels[1].compression_ratio
+    if not abs(density - p) <= LLM_MASK_DENSITY_TOL * p:
+        failures.append(f"mask density {density}, p {p}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    if profile:
+        profile_llm_step(cfg, params, pfels[1], steps[1], batches[0],
+                         keys[0], d, smi)
+    layout_padded = -(-d // 128) * 128
+    del params, data, batches
+    torch.cuda.empty_cache()
+    summary = check_clip_flat(layout_padded, seed=31)
+    emit({"phase": "llm_train", "seconds": time.perf_counter() - t_phase})
+    return launches, summary
+
+
+def profile_llm_step(cfg, params, pfels, step, batch, k, d, smi):
+    """``--profile``: one more tau = 1 step under the profiler (device
+    busy time and idle share), then its parts timed one by one."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import aggregation, randk
+    from repro_torch.core.clipping import FlatTree, clip_tree_flat
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.launch.steps import _round_channel, make_train_loss_step
+    prof = profile_call("zamba2-2.7b PFELS step, tau 1, batch 8 x 512",
+                        lambda: step(params, batch, k), top=15)
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    _, _, grads = timed("forward_backward", lambda: make_train_loss_step(
+        cfg)(params, batch))
+    layout = FlatTree(grads)
+    flat = timed("gather_f32", lambda: layout.gather(grads))
+    timed("clip_kernel", lambda: clip_kernel.clip_norm(
+        flat.view(-1, 128), 1.0))
+    del flat
+    update, _, _ = timed("clip_tree_flat", lambda: clip_tree_flat(
+        grads, pfels.clip))
+    del grads
+    kc, km, kn = prng.split(k, 3)
+    _, beta = _round_channel(kc, pfels, d, 1)
+    utree = layout.tree(update)
+    masks = timed("mask_tree", lambda: randk.mask_tree(
+        km, utree, pfels.compression_ratio))
+    timed("production_aggregate",
+          lambda: aggregation.pfels_production_aggregate(
+              utree, masks, beta=beta, r=1, sigma0=pfels.channel.noise_std,
+              noise_key=kn))
+    del update, utree, masks
+    emit({"phase": "llm_train", "part": "split of one tau = 1 step",
+          "step_wall_s": prof["wall_s"],
+          "step_device_busy_s": prof["device_busy_s"],
+          "device_idle_share": prof["device_idle_share"],
+          "parts_s": parts, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+
 def phase_ssd_timing():
     """``--time-ssd``: the scan alone at the two serving prefills (bf16,
     warm and cold L2), then three warm zamba2-2.7b prefills and one
@@ -2741,8 +3052,9 @@ def main(argv=None) -> int:
                     help="profile one more main-path round and one more "
                          "round of each baseline after the checked ones, "
                          "and 8 zamba2-2.7b decode steps after the serve "
-                         "phase's profiled prefill (device busy time, time "
-                         "by kernel)")
+                         "phase's profiled prefill, and one more "
+                         "zamba2-2.7b PFELS step with its parts timed "
+                         "(device busy time, time by kernel)")
     ap.add_argument("--time-ssd", action="store_true",
                     help="only time ssd_scan at the two serving prefills "
                          "and a warm zamba2-2.7b prefill (no checks, no "
@@ -2786,6 +3098,14 @@ def main(argv=None) -> int:
     phase_serve_parity()
     launches.update(phase_serve(args.profile))
     phase_serve_parity_bf16()
+    # clip_norm's main path is the production step's gradient clip: its
+    # launches and its time at that flat size replace the kernel_api
+    # chain's (kept beside them)
+    api_launches, at_vgg11 = launches["clip_norm"], summary["clip_norm"]
+    launches["clip_norm"], summary["clip_norm"] = phase_llm_train(
+        args.profile)
+    summary["clip_norm"].update({"launches_kernel_api": api_launches,
+                                 "at_vgg11_rows": at_vgg11})
     from repro_torch.kernels.pfels_transmit import kernel
     pfels_src = "src/repro_torch/csrc/pfels_transmit.cu"
     rows = [("pfels_transmit.client_sumsq", "client_sumsq", pfels_src,

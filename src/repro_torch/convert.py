@@ -94,6 +94,17 @@ def lm_params_from_jax(tree: Any, cfg, device: Device = "cuda"):
     return params
 
 
+def lm_params_to_jax(params) -> Any:
+    """The inverse of :func:`lm_params_from_jax`: the port's LLM params
+    as the reference's tree (the same nesting, blocks a tuple) of numpy
+    arrays, bf16 as ``ml_dtypes.bfloat16``, bit for bit."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_jax(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return tuple(lm_params_to_jax(v) for v in params)
+    return numpy_from_tensor(params)
+
+
 def params_to_jax(params: Params) -> Any:
     """The inverse of :func:`params_from_jax`: nested dicts and lists of
     numpy arrays (a path part that is a number is a list index)."""

@@ -1,7 +1,9 @@
-"""Aggregation, simulation mode (port of the single-device part of
-``repro/core/aggregation.py``): AirComp through the unfused plain-torch
-path or the fused path through the ``pfels_transmit`` kernels, and the
-digital baselines' server-side aggregates (DP-FedAvg, FedAvg)."""
+"""Aggregation (port of the single-device part of
+``repro/core/aggregation.py``): in simulation mode, AirComp through the
+unfused plain-torch path or the fused path through the ``pfels_transmit``
+kernels, and the digital baselines' server-side aggregates (DP-FedAvg,
+FedAvg); in production mode, the per-tensor PFELS transform of one
+pod-scale client (``pfels_production_aggregate``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,6 +15,7 @@ from repro_torch.core import channel as chan
 from repro_torch.core.clipping import row_norms
 from repro_torch.core.compressors import base as comp_base
 from repro_torch.kernels.pfels_transmit import ref as transmit_ref
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def realized_r(tx_mask, r: int):
@@ -103,3 +106,38 @@ def dp_fedavg_aggregate(updates_flat, clip: float, sigma: float, noise_key,
 
 def fedavg_aggregate(updates_flat):
     return torch.mean(updates_flat, dim=0)
+
+
+# ------------------------------------------------------------- production
+
+def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
+                               sigma0: float, noise_key,
+                               axis_name: Optional[str] = None,
+                               unbiased_rescale: bool = False,
+                               compression_p: float = 1.0):
+    """PFELS aggregation of a pod-scale client (DESIGN.md §3), per tensor
+    of its f32 update tree: mask, scale by beta (the channel gain
+    pre-inverted, so the received signal is beta A Delta), add the channel
+    noise ``sigma0 * mask * normal`` on the transmitted coordinates (one
+    key a leaf from ``split(noise_key, n_leaves)``), unscale by
+    1/(r beta), and by 1/p with ``unbiased_rescale``. The superposition
+    over clients (``axis_name``, a psum in the reference) waits for the
+    sharded cohort. As XLA's CPU backend computes the reference's
+    ``x * beta + sigma0 * m * z``, the first product and the add fuse into
+    one FMA over the rounded noise product, so the result is the
+    reference's bit for bit where the draw is."""
+    if axis_name is not None:
+        raise NotImplementedError("the cross-client superposition of the "
+                                  "production aggregate is not ported yet: "
+                                  "ROADMAP Queue 1, item 11")
+    leaves = tree_leaves(update_tree)
+    keys = prng.split(noise_key, len(leaves))
+    scale = 1.0 / (r * beta)
+    if unbiased_rescale:
+        scale = scale / torch.full_like(scale, compression_p)
+    out = []
+    for x, m, k in zip(leaves, tree_leaves(masks), keys):
+        mf = m.to(x.dtype)
+        z = prng.normal(k, tuple(x.shape)).to(x.dtype)
+        out.append(prng.fma_f32(x * mf, beta, (sigma0 * mf) * z) * scale)
+    return tree_unflatten(update_tree, out)

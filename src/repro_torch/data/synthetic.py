@@ -92,3 +92,24 @@ def make_population_source(key, *, n_clients: int, per_client: int,
 
     xt, yt = _test_set(kt, protos, num_classes, shape, noise)
     return loader.ClientFnSource(cohort, n_clients), xt, yt
+
+
+def make_lm_sequences(key, *, n_seqs: int, seq_len: int, vocab: int,
+                      order: int = 1) -> torch.Tensor:
+    """Synthetic LM data from a random Markov chain (learnable structure):
+    (n_seqs, seq_len) int32 tokens on the key's device, the reference's
+    draws. The chain's logits are ``2 normal(kt, (vocab, vocab))``; each
+    sequence starts at ``randint(k0, (), 0, vocab)`` and takes each next
+    token by ``categorical`` from the row of the current one, one key a
+    step, the sequences drawn together as the reference's ``vmap``.
+    ``order`` is the reference's argument, which its chain ignores."""
+    kt, ks, _ = prng.split(key, 3)
+    logits = 2.0 * prng.normal(kt, (vocab, vocab))
+    pair = prng.split(prng.split(ks, n_seqs), 2)        # (n, 2, 2)
+    tok = prng.randint(pair[:, 0], (), 0, vocab)        # (n,)
+    step_keys = prng.split(pair[:, 1], seq_len - 1)     # (n, S - 1, 2)
+    out = [tok]
+    for t in range(seq_len - 1):
+        tok = prng.categorical(step_keys[:, t], logits[tok])
+        out.append(tok)
+    return torch.stack(out, dim=1).to(torch.int32)

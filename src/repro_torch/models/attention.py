@@ -4,17 +4,20 @@ decode over a (ring-buffer) KV cache (port of ``repro/models/attention.py``).
 
 Prefill (``attn_train``) sends q, k and v through
 ``kernels/flash_attn``: the hand-written kernel on the card, its plain
-version on the CPU. The kernel keeps ``q * scale`` and the probabilities
-in f32, where the reference's jnp ``flash_attention`` rounds both to the
-input dtype; in f32 the two agree to f32 rounding, in bf16 to bf16
-rounding. Decode stays in plain torch ops (``flash_attention`` below):
-the TPU kernel has no validity mask or slot positions, so a decode kernel
-would be no TPU kernel's counterpart.
+version on the CPU. Training (``attn_train(use_kernel=False)``) takes the
+blockwise ``flash_attention`` under autograd, as the reference trains.
+The kernel keeps ``q * scale`` and the probabilities in f32, where
+the reference's jnp ``flash_attention`` rounds both to the input dtype;
+in f32 the two agree to f32 rounding, in bf16 to bf16 rounding. Decode
+stays in plain torch ops (``flash_attention`` below): the TPU kernel has
+no validity mask or slot positions, so a decode kernel would be no TPU
+kernel's counterpart.
 
 Cross-attention and M-RoPE wait for the encoder-decoder and VLM slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -48,6 +51,30 @@ def attn_init(gen, cfg: ModelConfig, device, lead=()):
 
 # ------------------------------------------------------- blockwise attention
 
+def _kv_block(qf, kc, vc, pc, vld, pos_q, m, l, acc, *, causal: bool,
+              window: Optional[int]):
+    """One KV block of the online softmax: the updated (m, l, acc)."""
+    b, sq = qf.shape[:2]
+    # scores (B, Sq, Hkv, G, block), f32
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf.float(), kc.float())
+    mask = torch.ones((b, sq, kc.shape[1]), dtype=torch.bool,
+                      device=qf.device)
+    if causal:
+        mask &= pos_q[:, :, None] >= pc[:, None, :]
+    if window is not None:
+        mask &= pos_q[:, :, None] - pc[:, None, :] < window
+    if vld is not None:
+        mask &= vld[:, None, :]
+    s = s.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bqhgk,bkhd->bqhgd", p.to(vc.dtype).float(), vc.float())
+    return m_new, l, acc
+
+
 def flash_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
                     window: Optional[int], kv_valid=None,
                     block_kv: int = 512):
@@ -57,7 +84,10 @@ def flash_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
     (B, Skv) absolute positions (ring buffers pass slot positions);
     kv_valid: optional (B, Skv) bool. Returns (B, Sq, H, Dh) in q's dtype.
     As the reference does, ``q * scale`` and the probabilities are rounded
-    to the input dtype before their products (accumulated in f32).
+    to the input dtype before their products (accumulated in f32). When a
+    gradient is being taken each KV block is checkpointed, as the
+    reference's ``jax.checkpoint`` of its scan body: the backward
+    recomputes the block's scores instead of keeping its probabilities.
     """
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -71,28 +101,13 @@ def flash_attention(q, k, v, pos_q, pos_kv, *, causal: bool,
     l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, sq, hkv, g, dh), dtype=torch.float32,
                       device=q.device)
+    block = functools.partial(_kv_block, causal=causal, window=window)
     for k0 in range(0, skv, block_kv):
-        kc = k[:, k0:k0 + block_kv]
-        vc = v[:, k0:k0 + block_kv]
-        pc = pos_kv[:, k0:k0 + block_kv]
-        # scores (B, Sq, Hkv, G, block), f32
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qf.float(), kc.float())
-        mask = torch.ones((b, sq, kc.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= pos_q[:, :, None] >= pc[:, None, :]
-        if window is not None:
-            mask &= pos_q[:, :, None] - pc[:, None, :] < window
-        if kv_valid is not None:
-            mask &= kv_valid[:, None, k0:k0 + block_kv]
-        s = s.masked_fill(~mask[:, :, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqhgk,bkhd->bqhgd", p.to(vc.dtype).float(), vc.float())
-        m = m_new
+        kv = slice(k0, k0 + block_kv)
+        vld = kv_valid[:, kv] if kv_valid is not None else None
+        m, l, acc = layers.checkpointed(block, qf, k[:, kv], v[:, kv],
+                                        pos_kv[:, kv], vld, pos_q, m, l,
+                                        acc)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
@@ -120,14 +135,24 @@ def _project(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def attn_train(p, cfg: ModelConfig, x, positions, *, window=None):
-    """Causal (optionally windowed) self-attention of a prefill from an
-    empty cache: ``positions`` are 0..S-1 (``transformer.text_positions``),
-    which is what the kernel's suffix-aligned mask assumes; they feed
-    RoPE. Returns (y, {k, v})."""
+def attn_train(p, cfg: ModelConfig, x, positions, *, window=None,
+               use_kernel: bool = True):
+    """Causal (optionally windowed) self-attention over positions 0..S-1
+    (``transformer.text_positions``), which feed RoPE. With
+    ``use_kernel`` (prefill) q, k and v go through ``kernels/flash_attn``
+    (the kernel on the card, its plain version on the CPU), whose
+    suffix-aligned mask assumes those positions; without it (training,
+    which needs a backward the kernel does not have) through the blockwise
+    ``flash_attention`` above, the reference's own training route.
+    Returns (y, {k, v})."""
     q, k, v = _project(p, cfg, x, positions)
-    out = flash_kernel.flash_attention_fwd(
-        q, k, v, causal=True, window=window or cfg.sliding_window)
+    window = window or cfg.sliding_window
+    if use_kernel:
+        out = flash_kernel.flash_attention_fwd(q, k, v, causal=True,
+                                               window=window)
+    else:
+        out = flash_attention(q, k, v, positions, positions, causal=True,
+                              window=window, block_kv=cfg.attn_block_kv)
     b, s = out.shape[:2]
     y = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
     return y, {"k": k, "v": v}

@@ -15,6 +15,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name ("bfloat16", "float32") as a torch dtype."""
@@ -130,8 +132,30 @@ def embed_init(gen, vocab_padded: int, d_model: int, dtype, device):
                             device)}
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """The rows of ``table`` at ``tokens``, with the reference's custom
+    VJP: the cotangent is scatter-added into f32 zeros and cast to the
+    table's dtype once, so repeated tokens are summed in f32 (the
+    autograd of a bf16 lookup would sum them in bf16)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tokens,) = ctx.saved_tensors
+        d = ctx.table_shape[1]
+        g = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                        device=ct.device)
+        g.index_add_(0, tokens.reshape(-1), ct.reshape(-1, d).float())
+        return g.to(ctx.table_dtype), None
+
+
 def embed_apply(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+    return _EmbedLookup.apply(p["table"], tokens.long())
 
 
 def logits_apply(p_head_or_embed, x: torch.Tensor, *, tied: bool
@@ -143,3 +167,66 @@ def logits_apply(p_head_or_embed, x: torch.Tensor, *, tied: bool
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
+
+
+# --------------------------------------------------------------- the losses
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    intermediates (``jax.checkpoint``) when a gradient is being taken
+    through a tensor argument (serving takes none and runs ``fn``
+    plainly)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           preserve_rng_state=False)
+    return fn(*args)
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """(sum of the token NLLs, count of valid labels) in f32. The padded
+    vocab columns get -1e9; labels < 0 are ignored."""
+    vpad = logits.shape[-1]
+    logits = logits.float()
+    if vpad > vocab:
+        bias = torch.zeros((vpad,), dtype=torch.float32,
+                           device=logits.device)
+        bias[vocab:] = -1e9
+        logits = logits + bias
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return torch.sum(nll), torch.sum(valid).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
+                  ) -> torch.Tensor:
+    """Mean token cross-entropy over the valid labels (labels < 0 are
+    ignored, the padded vocab columns excluded)."""
+    nll, n_valid = _ce_sums(logits, labels, vocab)
+    return nll / torch.clamp_min(n_valid, 1.0)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head, labels: torch.Tensor,
+                          vocab: int, *, tied: bool, chunk: int = 512
+                          ) -> torch.Tensor:
+    """The cross-entropy without the whole (B, S, V) logits: the logits
+    and NLL of one sequence chunk at a time, each chunk checkpointed (the
+    backward recomputes its logits), the sums carried in chunk order."""
+    s = x.shape[1]
+    if s % chunk != 0:
+        chunk = s
+
+    def body(x_c, l_c):
+        return _ce_sums(logits_apply(head, x_c, tied=tied), l_c, vocab)
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        nll, nv = checkpointed(body, x[:, c0:c0 + chunk],
+                               labels[:, c0:c0 + chunk])
+        nll_sum = nll_sum + nll
+        n_valid = n_valid + nv
+    return nll_sum / torch.clamp_min(n_valid, 1.0)

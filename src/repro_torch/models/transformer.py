@@ -11,9 +11,9 @@ the same stacked layout: one dict per pattern position, a leading repeat
 dim on every leaf. ``decode_step`` updates them in place.
 
 Ported: the ``mamba`` and ``attn`` blocks (the ssm, hybrid and dense
-families). ``moe`` blocks, the Whisper encoder, the VLM prefix with
-M-RoPE, sampling and ``forward_train`` raise ``NotImplementedError``
-naming their ROADMAP item.
+families), for training (``forward_train``) and serving. ``moe`` blocks,
+the Whisper encoder, the VLM prefix with M-RoPE and sampling raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -122,13 +122,17 @@ def param_count(params) -> int:
 def _block_apply(p, kind: str, cfg: ModelConfig, x, positions, *, mode: str,
                  cache=None, window=None):
     """Returns (x, cache): the prefill's cache of the block, or the decode
-    cache updated in place."""
+    cache updated in place. ``mode="train"`` takes the plain model
+    functions under autograd (the kernels have no backward), as the
+    reference trains; ``"prefill"`` the kernels."""
     h = layers.norm_apply(p["ln1"], x, cfg.norm, impl=cfg.norm_impl)
+    use_kernel = mode != "train"
     if kind == "mamba":
         if mode == "decode":
             y, new_cache = mamba2.mamba_decode(p["mamba"], cfg, h, cache)
         else:
-            y, new_cache = mamba2.mamba_train(p["mamba"], cfg, h)
+            y, new_cache = mamba2.mamba_train(p["mamba"], cfg, h,
+                                              use_kernel=use_kernel)
         return x + y, new_cache
     if mode == "decode":
         y, new_cache = attention.attn_decode(p["attn"], cfg, h, cache,
@@ -136,15 +140,64 @@ def _block_apply(p, kind: str, cfg: ModelConfig, x, positions, *, mode: str,
                                              positions=positions)
     else:
         y, new_cache = attention.attn_train(p["attn"], cfg, h, positions,
-                                            window=window)
+                                            window=window,
+                                            use_kernel=use_kernel)
     x = x + y
     h2 = layers.norm_apply(p["ln2"], x, cfg.norm, impl=cfg.norm_impl)
     return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_act), new_cache
 
 
-def forward_train(*args, **kwargs):
-    raise NotImplementedError(f"training of the LLM stack is not ported yet: "
-                              f"{_LATER} (training, optim/, steps.py)")
+def _unstack(tree, rep: int):
+    """The ``rep`` repeats of a stacked tree as views: one list entry a
+    repeat (``unbind``, whose backward stacks the repeats' gradients
+    once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, rep) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in parts} for r in range(rep)]
+    return list(torch.unbind(tree, 0))
+
+
+def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = True,
+                  window=None):
+    """The training forward (port of the reference's ``forward_train``):
+    ``batch`` = {tokens (B, S), labels (B, S)}; returns (loss, metrics)
+    with metrics {loss, aux_loss}. With ``remat`` each repeat of the block
+    pattern is checkpointed (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its scan body): the backward keeps one (B, S, D)
+    carry a repeat. The reference also puts an XLA optimization barrier
+    on that carry, a scheduling hint whose gradient is the identity, which
+    eager PyTorch has no use for. The loss streams over sequence chunks
+    when S x padded vocab exceeds 2^26, as the reference's does."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = layers.embed_apply(params["embed"], tokens)
+    pos = text_positions(b, s, device=x.device)
+    rep = cfg.resolved_repeat()
+    stacks = [_unstack(blk, rep) for blk in params["blocks"]]
+
+    def body(x, r):
+        for i, kind in enumerate(cfg.block_pattern):
+            x, _ = _block_apply(stacks[i][r], kind, cfg, x, pos,
+                                mode="train", window=window)
+        return x
+
+    for r in range(rep):
+        x = layers.checkpointed(body, x, r) if remat else body(x, r)
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm,
+                          impl=cfg.norm_impl)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    labels = batch["labels"]
+    vpad = layers.pad_vocab(cfg.vocab_size)
+    if x.shape[1] * vpad > 2 ** 26:
+        loss = layers.chunked_cross_entropy(x, head, labels, cfg.vocab_size,
+                                            tied=cfg.tie_embeddings)
+    else:
+        logits = layers.logits_apply(head, x, tied=cfg.tie_embeddings)
+        loss = layers.cross_entropy(logits, labels, cfg.vocab_size)
+    # the MoE load-balance loss of the reference: none without moe blocks
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 # ----------------------------------------------------------------- serving

@@ -315,6 +315,31 @@ def bernoulli(key: torch.Tensor, p: float, shape: Shape = ()) -> torch.Tensor:
     return u < torch.tensor(_f32(p), dtype=torch.float32, device=u.device)
 
 
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` (f32) in its default ``mode="low"``:
+    ``-log(-log(U[tiny, 1)))``, the logs XLA's CPU ``log``
+    (:func:`log_f32`). A batch of M keys gives (M,) + shape."""
+    shape = _shape(shape)
+    g = _hash_counts(
+        key, math.prod(shape),
+        lambda b: -log_f32(-log_f32(_affine(_bits_to_unit(b), _F32_TINY,
+                                            1.0))), torch.float32)
+    return g.reshape(key.shape[:-1] + shape)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, with
+    replacement and the default ``mode`` ("low"): the argmax of
+    ``gumbel(key, logits.shape) + logits`` (the first index of a tie). A
+    batch of M keys with logits (M, V) draws one index a row, as
+    ``jax.vmap`` over both would."""
+    g = gumbel(key, logits.shape[key.ndim - 1:])
+    return torch.argmax(g + logits.float(), dim=-1)
+
+
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
             ) -> torch.Tensor:
     """``jax.random.randint`` for int32, returned as int64 (torch's index

@@ -46,3 +46,51 @@ class Unravel:
         parts = torch.split(flat, self.sizes)
         return {n: p.reshape(s)
                 for n, p, s in zip(self.names, parts, self.shapes)}
+
+
+# ------------------------------------------------------------ nested trees
+#
+# The LLM stack's params are nested: dicts of dicts, with a tuple of
+# stacked blocks (``models/transformer.py``). The helpers below visit the
+# leaves of such a tree in ``jax.tree.flatten`` order (dict keys sorted,
+# list and tuple order kept, None an empty subtree). A flat dict of
+# ``Params`` is the special case of one level, sorted by :func:`path_key`.
+
+
+def _dict_keys(d) -> List[str]:
+    return sorted(d, key=path_key)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested tree, in pytree leaf order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in _dict_keys(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to ``tree`` and trees of the same
+    structure; the leaves are visited in pytree order, so ``fn`` may draw
+    from an iterator that :func:`tree_leaves` order matches."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in _dict_keys(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (pytree order)."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
