@@ -32,7 +32,15 @@ Phases, each printing one JSON line:
    ``flash_attention_fwd`` at zamba2-2.7b's (B 8, S 2048, H = Hkv = 32,
    Dh 80) in bf16 (tensor cores) and f32 (CUDA cores), beside
    ``scaled_dot_product_attention``, with TFLOP/s, the share of the bound
-   and the bf16 kernel's ``ptxas`` registers and spills; ``clip_norm``,
+   and the bf16 kernel's ``ptxas`` registers and spills; then at the MoE,
+   Whisper and VLM serving shapes in both routes (the bf16 one also
+   against its emulated rounding), timed the same way: with no mask
+   whisper-tiny's encoder (S 1500) and cross-attention in prefill (Sq
+   128) and decode (Sq 1) against 1500 frames, and a small Sq > Skv;
+   causal whisper's decoder prefill, granite-moe-3b-a800m's (GQA 24/8)
+   and qwen2-vl-72b's (B 4, S 2048, GQA 64/8, Dh 128) as one launch and
+   as its serving path runs it (the 1024-row vision prefix against
+   itself with no mask, the text rows against every key); ``clip_norm``,
    ``randk_gather`` and ``aircomp_combine`` at ragged small shapes (f32
    and bf16, the combine with duplicate rows too; all three also on
    views off 16-byte alignment, which must equal their aligned copies;
@@ -99,18 +107,28 @@ Phases, each printing one JSON line:
    its own, with the reference's defaults for 10 rounds and at
    population scale (streamed bank, 100,000 clients); its ``--out`` JSON
    checked.
-13. ``serve_parity_on_card``: reduced zamba2-2.7b and mamba2-130m in f32,
-   prefill and 8 greedy decode steps on the card (kernels) against the
-   same params on the CPU (plain versions); and the reduced zamba2-2.7b's
-   bf16 prefill, card against CPU, within 3% of max|logit|.
-14. ``serve``: ``repro_torch.launch.serve.serve`` of zamba2-2.7b at full
-   width (batch 8, prompt 2048, 64 new tokens, bf16, random weights from
-   seed 0), then of mamba2-130m; launch counters zeroed just before each
-   and read just after (45 ``ssd_scan`` and 9 ``flash_attention_fwd`` for
-   zamba2); prefill s, decode tok/s, peak memory, finite logits and
-   in-vocabulary tokens; then three warm zamba2-2.7b prefills and one
-   more under the profiler: its device time, and each LLM kernel's device
-   ms and share of it.
+13. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
+   granite-moe-3b-a800m (6 padded experts over 4), whisper-tiny and
+   qwen2-vl-72b in f32, prefill (with the f32 stub prefix of the last two),
+   8 greedy decode steps and 8 sampled ones on the card (kernels) against
+   the same params on the CPU (plain versions), the launches against
+   those the config implies; and the reduced zamba2-2.7b's bf16 prefill,
+   card against CPU, within 3% of max|logit|.
+14. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
+   random weights from seed 0, each model freed before the next:
+   zamba2-2.7b and mamba2-130m (batch 8, prompt 2048, 64 greedy tokens),
+   granite-moe-3b-a800m (batch 8, prompt 2048, 64 greedy then 64 sampled
+   tokens from the same params), whisper-tiny (batch 8, prompt 128, 1500
+   encoder frames, 64 greedy then 64 sampled) and qwen2-vl-72b at 16 of
+   its 80 layers (batch 4, prompt 2048 of which a 1024-row vision prefix,
+   32 greedy tokens); launch counters zeroed just before each call and
+   read just after, against those the config implies (zamba2: 45
+   ``ssd_scan`` and 9 ``flash_attention_fwd``; granite 32; whisper 12 a
+   prefill and 4 a decode step; qwen2-vl 32, two a layer); prefill s,
+   decode tok/s, peak memory, finite logits, in-vocabulary tokens and
+   the MoE prefill's drop fraction; then three warm zamba2-2.7b prefills
+   and one more under the profiler: its device time, and each LLM
+   kernel's device ms and share of it.
 15. ``llm_train``: PFELS as the optimizer of one transformer that is one
    FL client (``repro_torch.launch.steps.make_pfels_train_step``). First
    one step of the reduced zamba2-2.7b in f32 on the card against the CPU
@@ -141,8 +159,11 @@ device kernels of one call), runs the ``kernel_api`` chain three times,
 and prints no result line. Like ``--time-ssd`` it uses only what every
 tree of the port has, for the same turns with a parent commit.
 
-Then the kernel summary line, the ``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``. Any failure raises and the
+Then the kernel summary line (the flash row with its times at every
+timed shape under ``by_shape``; the serving kernels' launches summed over
+the serve runs, each run's under ``launches_by_path``), the whole run's
+seconds, the ``nvidia-smi`` name and power limit, and last ``{"ok":
+true, "device": {...}}``. Any failure raises and the
 exit code is non-zero; without a CUDA device it exits 2 and prints no
 result.
 """
@@ -417,6 +438,23 @@ FLASH_SMALL = ((1, 100, 100, 4, 4, 64, None), (2, 130, 130, 8, 2, 80, None),
 # a mid-size shape at zamba2-2.7b's row length (GQA), where the bf16
 # route is also held to its emulated rounding
 FLASH_MID = (1, 2048, 2048, 4, 2, 80, None)
+# the shapes of the MoE, Whisper and VLM serving paths, (shape, causal):
+# whisper-tiny's encoder (1500 frames) and cross-attention in prefill
+# (prompt 128) and decode (one row) with no mask, and its decoder's
+# causal prefill; a small Sq > Skv with no mask; granite-moe-3b-a800m's
+# causal prefill (GQA 24/8); qwen2-vl-72b's prefill of 1024 vision and
+# 1024 text rows (GQA 64/8, Dh 128) as one causal launch, and as its
+# serving path runs it: the vision prefix against itself with no mask,
+# then the text rows against every key, causal
+FLASH_FAMILIES = (((8, 1500, 1500, 6, 6, 64, None), False),
+                  ((8, 128, 1500, 6, 6, 64, None), False),
+                  ((8, 1, 1500, 6, 6, 64, None), False),
+                  ((8, 128, 128, 6, 6, 64, None), True),
+                  ((1, 300, 77, 4, 2, 64, None), False),
+                  ((8, 2048, 2048, 24, 8, 64, None), True),
+                  ((4, 2048, 2048, 64, 8, 128, None), True),
+                  ((4, 1024, 1024, 64, 8, 128, None), False),
+                  ((4, 1024, 2048, 64, 8, 128, None), True))
 # tolerances against the plain versions, relative to the largest value:
 # ssd_scan sums up to 128 terms per chunk and carries a recurrence over
 # 16 chunks in another order than the plain einsums (measured 7e-6)
@@ -610,31 +648,50 @@ def check_ssd_kernels():
     return summary
 
 
-def flash_work(b, sq, skv, h, hkv, dh, window, elem):
+def flash_work(b, sq, skv, h, hkv, dh, window, elem, causal=True):
     """Bytes (q, k, v read once, the output written once) and FLOPs of
-    the causal product: the (query, key) pairs the mask keeps, a
-    multiply-add over Dh for the scores and one for the values each."""
+    the product: the (query, key) pairs the mask keeps (every pair with
+    ``causal=False`` and no window), a multiply-add over Dh for the
+    scores and one for the values each."""
     off = skv - sq
     pairs = 0
     for i in range(sq):
-        hi = i + off + 1
-        lo = 0 if window is None else max(0, hi - window)
-        pairs += hi - lo
+        hi = i + off + 1 if causal else skv
+        lo = 0 if window is None else max(0, i + off - window + 1)
+        pairs += max(0, hi - lo)
     n_bytes = (2 * b * sq * h * dh + 2 * b * skv * hkv * dh) * elem
     return n_bytes, 4.0 * b * h * dh * pairs
 
 
-def _plain_attention_by_row(q, k, v, window):
+def _plain_attention_by_row(q, k, v, window, causal=True):
     """The plain version one batch row at a time (a full-shape f32 score
     tensor of every row together would take 4.3 GB)."""
     import torch
     from repro_torch.kernels.flash_attn import ref
     return torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                        causal=True, window=window)
+                                        causal=causal, window=window)
                       for i in range(q.shape[0])])
 
 
-def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
+def _sdpa_call(q, k, v, causal):
+    """One ``scaled_dot_product_attention`` call of the same function:
+    ``is_causal`` at Sq = Skv; the kernel's suffix-aligned causal mask as
+    a boolean mask where Sq < Skv (``is_causal`` aligns the rows to the
+    first key)."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sq, skv = q.shape[1], k.shape[1]
+    gqa = k.shape[2] != q.shape[2]
+    if causal and sq != skv:
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(skv - sq)
+        return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+    return lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+
+def check_flash_at(shape, dtype_name, seed, timed, emulate=False,
+                   causal=True):
     import torch
     from repro_torch.kernels.flash_attn import kernel, ref
     b, sq, skv, h, hkv, dh, window = shape
@@ -644,9 +701,10 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     k = torch.randn((b, skv, hkv, dh), generator=g, device="cuda").to(dtype)
     v = torch.randn((b, skv, hkv, dh), generator=g, device="cuda").to(dtype)
     kept = [t.clone() for t in (q, k, v)]
-    o1 = kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
-    o2 = kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
-    want = _plain_attention_by_row(q.float(), k.float(), v.float(), window)
+    o1 = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    o2 = kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = _plain_attention_by_row(q.float(), k.float(), v.float(), window,
+                                   causal)
     torch.cuda.synchronize()
     intact = all(torch.equal(x, y) for x, y in zip((q, k, v), kept))
     del kept
@@ -658,7 +716,7 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     bit = bool(torch.equal(o1, o2))
     line = {"phase": "kernels", "kernel": "flash_attention_fwd",
             "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "Hkv": hkv,
-                      "Dh": dh, "window": window, "causal": True},
+                      "Dh": dh, "window": window, "causal": causal},
             "dtype": dtype_name,
             "route": ("tensor cores (wgmma, TMA)" if dtype == torch.bfloat16
                       else "CUDA cores"),
@@ -670,7 +728,7 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
                          f"{abs_of} max|{of}|"}
     emulated = True
     if emulate:
-        emu, emu_limit = ref.tensor_core_route(q, k, v, causal=True,
+        emu, emu_limit = ref.tensor_core_route(q, k, v, causal=causal,
                                                window=window)
         emu_err = (o1.float() - emu.float()).abs()
         emulated = bool((emu_err <= emu_limit).all())
@@ -686,20 +744,16 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     summary = None
     if timed:
         n_bytes, flops = flash_work(b, sq, skv, h, hkv, dh, window,
-                                    dtype.itemsize)
+                                    dtype.itemsize, causal)
         peak = (PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16
                 else PEAK_F32_FLOP_PER_S)
         bound, by = bound_ms(n_bytes, flops, peak)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         times = {
             "kernel": time_ms(lambda: kernel.flash_attention_fwd(
-                q, k, v, causal=True, window=window)),
-            "plain": time_ms(lambda: _plain_attention_by_row(q, k, v,
-                                                             window),
-                             reps=5),
-            "library": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                            enable_gqa=hkv != h))}
+                q, k, v, causal=causal, window=window)),
+            "plain": time_ms(lambda: _plain_attention_by_row(
+                q, k, v, window, causal), reps=5),
+            "library": time_ms(_sdpa_call(q, k, v, causal))}
         line.update({
             "times_ms": times, "bytes": n_bytes, "flops": flops,
             "bound_ms": {"inputs_type": bound, "inputs_type_by": by,
@@ -710,7 +764,8 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
             "tflop_per_s": flops / times["kernel"] / 1e9,
             "share_of_bound": bound / times["kernel"],
             "plain_note": "the plain version one batch row at a time",
-            "library": "scaled_dot_product_attention (causal, same GQA)"})
+            "library": "scaled_dot_product_attention (the same mask and "
+                       "GQA)"})
         if dtype == torch.bfloat16:
             line["ptxas"] = flash_ptxas().get(dh)
         summary = {"max_abs_err": float(err.max()), "ms": times["kernel"],
@@ -720,17 +775,18 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False):
     del q, k, v, o1, o2, want, err
     torch.cuda.empty_cache()
     failures = []
+    where = f"{shape} causal={causal} {dtype_name}"
     if not ok:
-        failures.append(f"flash_attention_fwd {shape} disagrees with its "
+        failures.append(f"flash_attention_fwd {where} disagrees with its "
                         f"plain version")
     if not emulated:
-        failures.append(f"flash_attention_fwd {shape} departs from the "
+        failures.append(f"flash_attention_fwd {where} departs from the "
                         f"emulated rounding of its route")
     if not bit:
-        failures.append(f"flash_attention_fwd {shape} is not bit-identical "
+        failures.append(f"flash_attention_fwd {where} is not bit-identical "
                         f"run to run")
     if not intact:
-        failures.append(f"flash_attention_fwd {shape}: q, k or v changed "
+        failures.append(f"flash_attention_fwd {where}: q, k or v changed "
                         f"across the launches")
     if failures:
         raise AssertionError("; ".join(failures))
@@ -1212,6 +1268,18 @@ def phase_kernels():
         FLASH_ZAMBA2, "bfloat16", seed=13, timed=True)
     # the f32 route (CUDA cores) at the same shape, for its time
     check_flash_at(FLASH_ZAMBA2, "float32", seed=14, timed=True)
+    # the new families' shapes in both routes, the bf16 one also against
+    # its emulated rounding; timed but for the small Sq > Skv shape
+    by_shape = []
+    for i, (shape, causal) in enumerate(FLASH_FAMILIES):
+        timed = shape[1] != 300
+        for dtype in ("bfloat16", "float32"):
+            row = check_flash_at(shape, dtype, seed=30 + i, timed=timed,
+                                 emulate=dtype == "bfloat16", causal=causal)
+            if row:
+                by_shape.append({"shape": list(shape[:6]), "causal": causal,
+                                 "dtype": dtype, **row})
+    summary["flash_attention_fwd"]["by_shape"] = by_shape
     summary.update(check_row_kernels())
     return summary
 
@@ -2476,10 +2544,56 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def flash_launches_expected(cfg, decode_steps, prefix=True):
+    """The flash kernel's launches of one prefill and ``decode_steps``
+    decode steps: one a self-attention block in prefill (two under a VLM
+    prefix: the prefix's rows, then the text rows), and for an
+    encoder-decoder one an encoder block plus one a cross-attention in
+    prefill and in every decode step (decode's self-attention runs plain
+    ops)."""
+    n_attn = sum(k != "mamba" for k in cfg.block_pattern) \
+        * cfg.resolved_repeat()
+    n = n_attn * (2 if cfg.family == "vlm" and prefix else 1)
+    if cfg.is_encoder_decoder:
+        n += cfg.n_encoder_layers + n_attn * (1 + decode_steps)
+    return n
+
+
+def launches_expected(cfg, decode_steps):
+    n_mamba = cfg.block_pattern.count("mamba") * cfg.resolved_repeat()
+    return {"ssd_scan": n_mamba,
+            "flash_attention_fwd": flash_launches_expected(cfg,
+                                                           decode_steps)}
+
+
+def _serve_batch(cfg, batch, prompt, device):
+    """The prompt's tokens and the family's stub prefix in f32, drawn on
+    the CPU from fixed seeds and moved to ``device``."""
+    from repro_torch import prng
+    out = {"tokens": prng.randint(prng.PRNGKey(1, "cpu"), (batch, prompt),
+                                  0, cfg.vocab_size)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = 0.02 * prng.normal(
+            prng.PRNGKey(2, "cpu"), (batch, cfg.vision_prefix, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        out["audio_embeds"] = 0.02 * prng.normal(
+            prng.PRNGKey(3, "cpu"), (batch, cfg.encoder_seq, cfg.d_model))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+# the reduced configs of serve_parity_on_card: the hybrid and SSM ones,
+# and the MoE (6 padded experts over 4), Whisper and VLM families
+SERVE_PARITY = (("zamba2-2.7b", None), ("mamba2-130m", None),
+                ("granite-moe-3b-a800m", 6), ("whisper-tiny", None),
+                ("qwen2-vl-72b", None))
+
+
 def phase_serve_parity():
-    """Reduced zamba2-2.7b and mamba2-130m in f32: prefill and 8 greedy
-    decode steps on the card (kernels) against the same params and prompt
-    on the CPU (plain versions)."""
+    """The reduced configs in f32: prefill, 8 greedy decode steps, then 8
+    sampled ones (``prng.categorical`` from one key a step) on the card
+    (kernels) against the same params, prompt and prefix on the CPU (plain
+    versions); the kernel launches on the card against those the config
+    implies."""
     import dataclasses
 
     import torch
@@ -2491,24 +2605,31 @@ def phase_serve_parity():
 
     steps, tol = 8, 1e-4
     failures, lines = [], []
-    for arch in ("zamba2-2.7b", "mamba2-130m"):
+    for arch, padded in SERVE_PARITY:
         cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
                                   param_dtype="float32")
+        if padded:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, padded_experts=padded))
         params = T.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
-        toks = prng.randint(prng.PRNGKey(1, "cpu"), (4, 128), 0,
-                            cfg.vocab_size)
         runs = {}
         ssd_kernel.reset_launch_counts()
         flash_kernel.reset_launch_counts()
         for dev in ("cuda", "cpu"):
             p = _tree_to(params, dev)
-            logits, caches, _ = T.prefill(p, cfg, {"tokens": toks.to(dev)},
-                                          extra_slots=steps)
+            logits, caches, enc = T.prefill(
+                p, cfg, _serve_batch(cfg, 4, 128, dev),
+                extra_slots=2 * steps)
             out, tok = [logits.float().cpu()], torch.argmax(logits, dim=-1)
             toks_out = [tok.cpu()]
-            for _ in range(steps):
-                logits, caches = T.decode_step(p, cfg, tok, caches)
-                tok = torch.argmax(logits, dim=-1)
+            for i in range(2 * steps):
+                logits, caches = T.decode_step(p, cfg, tok, caches,
+                                               enc_out=enc)
+                if i < steps:
+                    tok = torch.argmax(logits, dim=-1)
+                else:
+                    key = prng.fold_in(prng.PRNGKey(4, dev), i)
+                    tok = prng.categorical(key, logits[:, -1])[:, None]
                 out.append(logits.float().cpu())
                 toks_out.append(tok.cpu())
             runs[dev] = (torch.stack(out), torch.cat(toks_out, dim=1))
@@ -2516,18 +2637,22 @@ def phase_serve_parity():
                 launches = {**ssd_kernel.LAUNCHES, **flash_kernel.LAUNCHES}
         (lc, tc), (lp, tp) = runs["cuda"], runs["cpu"]
         gap = float((lc - lp).abs().max() / lp.abs().max())
-        same = bool(torch.equal(tc, tp))
-        lines.append({"arch": cfg.name, "launches_on_card": launches,
+        greedy_same = bool(torch.equal(tc[:, :steps + 1], tp[:, :steps + 1]))
+        sampled_same = bool(torch.equal(tc[:, steps + 1:],
+                                        tp[:, steps + 1:]))
+        want = launches_expected(cfg, 2 * steps)
+        lines.append({"arch": cfg.name, "padded_experts": padded,
+                      "launches_on_card": launches,
+                      "launches_expected": want,
                       "max_logit_gap_rel_to_max": gap,
-                      "greedy_tokens_equal": same})
-        n_mamba = cfg.block_pattern.count("mamba") * cfg.resolved_repeat()
-        n_attn = cfg.block_pattern.count("attn") * cfg.resolved_repeat()
-        if launches != {"ssd_scan": n_mamba, "flash_attention_fwd": n_attn}:
-            failures.append(f"{arch}: prefill launched {launches}")
-        if not (gap <= tol and same):
+                      "greedy_tokens_equal": greedy_same,
+                      "sampled_tokens_equal": sampled_same})
+        if launches != want:
+            failures.append(f"{arch}: launched {launches}, expected {want}")
+        if not (gap <= tol and greedy_same and sampled_same):
             failures.append(f"{arch}: the card and the CPU disagree")
     emit({"phase": "serve_parity_on_card", "problem": "reduced, f32, "
-          "batch 4, prompt 128, 8 greedy steps", "runs": lines,
+          "batch 4, prompt 128, 8 greedy then 8 sampled steps", "runs": lines,
           "tolerance": f"logits {tol} of max|logit|, tokens equal"})
     if failures:
         raise AssertionError("; ".join(failures))
@@ -2573,8 +2698,15 @@ def phase_serve_parity_bf16():
         raise AssertionError("; ".join(failures))
 
 
-SERVE_RUNS = (("zamba2-2.7b", {"ssd_scan": 45, "flash_attention_fwd": 9}),
-              ("mamba2-130m", {"ssd_scan": 24, "flash_attention_fwd": 0}))
+# the serve phase's runs: (arch, depth (None: the whole stack), batch,
+# prompt length, greedy tokens, sampled tokens); random bf16 weights from
+# seed 0. qwen2-vl-72b runs 16 of its 80 layers: all 80 take about 145 GB
+# in bf16, past one card's 80 GB
+SERVE_RUNS = (("zamba2-2.7b", None, 8, 2048, 64, 0),
+              ("mamba2-130m", None, 8, 2048, 64, 0),
+              ("granite-moe-3b-a800m", None, 8, 2048, 64, 64),
+              ("whisper-tiny", None, 8, 128, 64, 64),
+              ("qwen2-vl-72b", 16, 4, 2048, 32, 0))
 
 
 def prefill_split(pre):
@@ -2594,61 +2726,83 @@ def prefill_split(pre):
 
 
 def phase_serve(profile: bool):
-    """The serving main path through ``serve``, the entry point a user
-    calls, at full width; the launch counters are zeroed just before each
-    call and read just after. Then one more zamba2-2.7b prefill under the
-    profiler (and, with ``profile``, 8 decode steps)."""
+    """The serving main paths through ``serve``, the entry point a user
+    calls, at full width: greedy, then (where the run asks) sampled from
+    the same params; the launch counters are zeroed just before each call
+    and read just after, and each model is freed before the next. Then
+    one more zamba2-2.7b prefill under the profiler (and, with
+    ``profile``, 8 decode steps). Returns the launches of every call,
+    summed by kernel, and by run."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import kernel as flash_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch.serve import serve
     from repro_torch.models import layers
+    from repro_torch.models import transformer as T
 
-    batch, prompt_len, new_tokens = 8, 2048, 64
-    launches_of = {}
+    total = {"ssd_scan": 0, "flash_attention_fwd": 0}
+    by_run = {}
     failures = []
-    for arch, want in SERVE_RUNS:
-        cfg = get_config(arch)
+    for arch, depth, batch, prompt_len, n_greedy, n_sampled in SERVE_RUNS:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ssd_kernel.reset_launch_counts()
-        flash_kernel.reset_launch_counts()
-        t0 = time.perf_counter()
-        r = serve(arch, reduced=False, batch=batch, prompt_len=prompt_len,
-                  new_tokens=new_tokens, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {**ssd_kernel.LAUNCHES, **flash_kernel.LAUNCHES}
-        peak = torch.cuda.max_memory_allocated()
-        vpad = layers.pad_vocab(cfg.vocab_size)
-        toks = r["tokens"]
-        finite = bool(torch.isfinite(r["logits"].float()).all())
-        in_vocab = bool(((toks >= 0) & (toks < vpad)).all())
-        shape_ok = tuple(toks.shape) == (batch, new_tokens)
-        emit({"phase": "serve", "arch": arch, "batch": batch,
-              "prompt_len": prompt_len, "new_tokens": new_tokens,
-              "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-              "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
-              "decode_tok_per_s": r["tok_per_s"],
-              "decode_ms_per_step": r["decode_s"] / new_tokens * 1e3,
-              "wall_s_with_init": wall, "peak_memory_bytes": peak,
-              "launches": launches, "finite_logits": finite,
-              "tokens_in_padded_vocab": in_vocab, "tokens_shape_ok": shape_ok,
-              "sample_tokens": toks[0, :12].tolist()})
-        if launches != want:
-            failures.append(f"{arch}: launched {launches}, expected {want}")
-        if not (finite and in_vocab and shape_ok):
-            failures.append(f"{arch}: bad output (finite {finite}, "
-                            f"in vocab {in_vocab}, shape {shape_ok})")
-        launches_of[arch] = launches
-        del r
+        params = None
+        for greedy, new_tokens in ((True, n_greedy), (False, n_sampled)):
+            if not new_tokens:
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            ssd_kernel.reset_launch_counts()
+            flash_kernel.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = serve(arch, reduced=False, batch=batch,
+                      prompt_len=prompt_len, new_tokens=new_tokens, seed=0,
+                      greedy=greedy, depth=depth, params=params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**ssd_kernel.LAUNCHES, **flash_kernel.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated()
+            cfg = r["cfg"]
+            if n_sampled:  # the sampled run serves the same params
+                params = r["params"]
+            want = launches_expected(cfg, new_tokens)
+            vpad = layers.pad_vocab(cfg.vocab_size)
+            toks = r["tokens"]
+            finite = bool(torch.isfinite(r["logits"].float()).all())
+            in_vocab = bool(((toks >= 0) & (toks < vpad)).all())
+            shape_ok = tuple(toks.shape) == (batch, new_tokens)
+            mode = "greedy" if greedy else "sampled"
+            emit({"phase": "serve", "arch": arch, "mode": mode,
+                  "batch": batch, "prompt_len": prompt_len,
+                  "new_tokens": new_tokens, "dtype": cfg.dtype,
+                  "n_layers": cfg.n_layers,
+                  "params": T.param_count(T.init_params(None, cfg, "meta")),
+                  "prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+                  "decode_tok_per_s": r["tok_per_s"],
+                  "decode_ms_per_step": r["decode_s"] / new_tokens * 1e3,
+                  "wall_s_with_init": wall, "peak_memory_bytes": peak,
+                  "moe_prefill_drop_fraction": r["drop_fraction"],
+                  "launches": launches, "launches_expected": want,
+                  "finite_logits": finite,
+                  "tokens_in_padded_vocab": in_vocab,
+                  "tokens_shape_ok": shape_ok,
+                  "sample_tokens": toks[0, :12].tolist()})
+            if launches != want:
+                failures.append(f"{arch} ({mode}): launched {launches}, "
+                                f"expected {want}")
+            if not (finite and in_vocab and shape_ok):
+                failures.append(f"{arch} ({mode}): bad output (finite "
+                                f"{finite}, in vocab {in_vocab}, shape "
+                                f"{shape_ok})")
+            by_run[f"{arch} {mode}"] = launches
+            for name, n in launches.items():
+                total[name] += n
+            del r
+        del params
     torch.cuda.empty_cache()
     # more zamba2-2.7b prefills: three warm ones on the host clock (serve's
     # first prefill also pays first-call costs), then one under the
     # profiler: the flash kernel's device time and its share of the
     # prefill's device time
-    pre, warm = profile_serve("zamba2-2.7b", batch, prompt_len,
+    pre, warm = profile_serve("zamba2-2.7b", 8, 2048,
                               steps=8 if profile else 0)
     emit({"phase": "serve", "arch": "zamba2-2.7b",
           "what": "three warm prefills, then one profiled (batch 8, "
@@ -2656,7 +2810,7 @@ def phase_serve(profile: bool):
           "prefill_warm_s": warm, **prefill_split(pre)})
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches_of["zamba2-2.7b"]
+    return total, by_run
 
 
 # ----------------------------------------------------------- llm_train
@@ -3064,6 +3218,7 @@ def main(argv=None) -> int:
                          "shapes and run the kernel_api chain (no result "
                          "line): the comparison with a parent tree")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3096,7 +3251,11 @@ def main(argv=None) -> int:
     phase_streamed()
     phase_train_cli()
     phase_serve_parity()
-    launches.update(phase_serve(args.profile))
+    serve_launches, serve_by_run = phase_serve(args.profile)
+    launches.update(serve_launches)
+    for name in serve_launches:
+        summary[name]["launches_by_path"] = {
+            run: n[name] for run, n in serve_by_run.items()}
     phase_serve_parity_bf16()
     # clip_norm's main path is the production step's gradient clip: its
     # launches and its time at that flat size replace the kernel_api
@@ -3130,6 +3289,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[key], **summary[key]}
         for name, key, source, replaces in rows]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
-"""Attention: GQA with 1-D RoPE, the blockwise (online-softmax) attention
-with positions and a validity mask, prefill through the flash kernel, and
-decode over a (ring-buffer) KV cache (port of ``repro/models/attention.py``).
+"""Attention: GQA with 1-D RoPE or M-RoPE, the blockwise (online-softmax)
+attention with positions and a validity mask, prefill through the flash
+kernel, decode over a (ring-buffer) KV cache, the Whisper encoder's
+bidirectional self-attention and cross-attention (port of
+``repro/models/attention.py``).
 
 Prefill (``attn_train``) sends q, k and v through
 ``kernels/flash_attn``: the hand-written kernel on the card, its plain
@@ -13,7 +15,17 @@ stays in plain torch ops (``flash_attention`` below): the TPU kernel has
 no validity mask or slot positions, so a decode kernel would be no TPU
 kernel's counterpart.
 
-Cross-attention and M-RoPE wait for the encoder-decoder and VLM slices.
+The bidirectional and cross-attention (``attn_bidirectional``,
+``cross_attn_apply``) call the kernel with ``causal=False``, q (B, Sq, H,
+Dh) against k and v (B, Skv, Hkv, Dh); cross-attention also in decode
+(Sq = 1 against the encoder's frames: no mask and no slot positions, the
+kernel's own function). With M-RoPE positions over a vision prefix the
+reference's causal mask compares the temporal ids, which are 0 over the
+whole prefix: the prefix attends to itself both ways. Prefill runs that
+mask through the kernel as two launches, the prefix's rows against the
+prefix's keys with ``causal=False`` and the text rows against every key
+with ``causal=True`` (the kernel's suffix alignment puts text row j at
+key position prefix + j).
 """
 from __future__ import annotations
 
@@ -127,31 +139,56 @@ def _project(p, cfg: ModelConfig, x, positions):
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet: ROADMAP Queue 1, "
-                                  "item 12 (VLM)")
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and positions.ndim == 3:
+        q = layers.apply_mrope(q, positions, cfg.rope_theta)
+        k = layers.apply_mrope(k, positions, cfg.rope_theta)
+    else:
+        pos1 = positions if positions.ndim == 2 else positions[..., 0]
+        q = layers.apply_rope(q, pos1, cfg.rope_theta)
+        k = layers.apply_rope(k, pos1, cfg.rope_theta)
     return q, k, v
+
+
+def _prefix_causal_fwd(q, k, v, prefix: int):
+    """The kernel under the reference's mask over M-RoPE positions with a
+    vision prefix of ``prefix`` rows (temporal id 0 on all of them): the
+    prefix's rows attend to the whole prefix, text row j to the prefix and
+    to text rows 0..j."""
+    vision = flash_kernel.flash_attention_fwd(
+        q[:, :prefix].contiguous(), k[:, :prefix].contiguous(),
+        v[:, :prefix].contiguous(), causal=False)
+    text = flash_kernel.flash_attention_fwd(q[:, prefix:].contiguous(), k,
+                                            v, causal=True)
+    return torch.cat([vision, text], dim=1)
 
 
 def attn_train(p, cfg: ModelConfig, x, positions, *, window=None,
                use_kernel: bool = True):
     """Causal (optionally windowed) self-attention over positions 0..S-1
-    (``transformer.text_positions``), which feed RoPE. With
-    ``use_kernel`` (prefill) q, k and v go through ``kernels/flash_attn``
-    (the kernel on the card, its plain version on the CPU), whose
-    suffix-aligned mask assumes those positions; without it (training,
-    which needs a backward the kernel does not have) through the blockwise
-    ``flash_attention`` above, the reference's own training route.
-    Returns (y, {k, v})."""
+    (``transformer.text_positions``), or over the (B, S, 3) M-RoPE ids of
+    ``transformer.mrope_positions``, which feed RoPE. With ``use_kernel``
+    (prefill) q, k and v go through ``kernels/flash_attn`` (the kernel on
+    the card, its plain version on the CPU), whose suffix-aligned mask
+    assumes those positions (a vision prefix takes two launches, see the
+    module's docstring); without it (training, which needs a backward the
+    kernel does not have) through the blockwise ``flash_attention`` above,
+    the reference's own training route, masked by the positions
+    themselves (the temporal ids under M-RoPE). Returns (y, {k, v})."""
     q, k, v = _project(p, cfg, x, positions)
     window = window or cfg.sliding_window
-    if use_kernel:
+    pos1 = positions if positions.ndim == 2 else positions[..., 0]
+    prefix = cfg.vision_prefix if positions.ndim == 3 else 0
+    if use_kernel and prefix:
+        if window is not None:
+            raise ValueError("a sliding window over M-RoPE positions is "
+                             "not a suffix-aligned window: the kernel "
+                             "cannot take it")
+        out = _prefix_causal_fwd(q, k, v, prefix)
+    elif use_kernel:
         out = flash_kernel.flash_attention_fwd(q, k, v, causal=True,
                                                window=window)
     else:
-        out = flash_attention(q, k, v, positions, positions, causal=True,
+        out = flash_attention(q, k, v, pos1, pos1, causal=True,
                               window=window, block_kv=cfg.attn_block_kv)
     b, s = out.shape[:2]
     y = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
@@ -188,6 +225,8 @@ def attn_decode(p, cfg: ModelConfig, x, cache, *, window: Optional[int],
     slots = cache["k"].shape[1]
     if positions is None:
         pos = idx.to(torch.int64).reshape(1, 1).expand(b, 1)
+        if cfg.mrope:
+            pos = pos[..., None].expand(b, 1, 3)
     else:
         pos = positions
     q, k_new, v_new = _project(p, cfg, x, pos)
@@ -209,3 +248,65 @@ def attn_decode(p, cfg: ModelConfig, x, cache, *, window: Optional[int],
     y = out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
     idx.add_(1)
     return y, cache
+
+
+def attn_bidirectional(p, cfg: ModelConfig, x, positions, *,
+                       use_kernel: bool = True):
+    """The Whisper encoder's self-attention: every frame attends to every
+    frame (``causal=False``, no window), through the kernel with
+    ``use_kernel`` and the blockwise ``flash_attention`` without it (the
+    reference's route, at its default KV block)."""
+    q, k, v = _project(p, cfg, x, positions)
+    if use_kernel:
+        out = flash_kernel.flash_attention_fwd(q, k, v, causal=False)
+    else:
+        q_pos = positions if positions.ndim == 2 else positions[..., 0]
+        out = flash_attention(q, k, v, q_pos, q_pos, causal=False,
+                              window=None)
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+# ------------------------------------------------------------ cross-attention
+
+def cross_attn_init(gen, cfg: ModelConfig, device, lead=()):
+    return attn_init(gen, cfg, device, lead)
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x, enc_kv, *,
+                     use_kernel: bool = True):
+    """x (B, Sq, D) attends to the encoder's precomputed k and v (B, Skv,
+    Hkv, Dh) with no mask: the kernel with ``causal=False`` (prefill and
+    decode alike; k and v cast to the queries' dtype where the encoder ran
+    in another), or without ``use_kernel`` the blockwise
+    ``flash_attention`` under autograd."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim()
+    q = x @ p["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(b, s, h, hd)
+    k, v = enc_kv["k"], enc_kv["v"]
+    if use_kernel:
+        out = flash_kernel.flash_attention_fwd(q, k.to(q.dtype),
+                                               v.to(q.dtype), causal=False)
+    else:
+        pos_q = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+        pos_kv = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                             device=x.device)
+        out = flash_attention(q, k, v, pos_q, pos_kv, causal=False,
+                              window=None)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def encode_cross_kv(p, cfg: ModelConfig, enc_out):
+    """The encoder output's k and v for one block's cross-attention, each
+    (B, Senc, Hkv, Dh)."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    k = enc_out @ p["wk"].to(enc_out.dtype)
+    v = enc_out @ p["wv"].to(enc_out.dtype)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return {"k": k.reshape(b, s, hkv, hd), "v": v.reshape(b, s, hkv, hd)}

@@ -102,6 +102,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float
+                ) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): x (B, S, H, Dh); positions3 (B, S, 3), the (t,
+    h, w) ids. The rotary spectrum splits into three sections, about 2/8,
+    3/8 and 3/8 of it, each turned by its own position stream."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
+    s_t = half // 4
+    s_h = (half - s_t) // 2
+    sect = torch.tensor([0] * s_t + [1] * s_h + [2] * (half - s_t - s_h),
+                        device=x.device)
+    pos = positions3.float()[..., sect]                         # (B,S,half)
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ------------------------------------------------------------------------ MLPs
 
 def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device,

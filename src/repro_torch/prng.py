@@ -27,6 +27,15 @@ What is exact and what is not:
   that flips on one of them changes a whole sample. How close they come
   is measured in ``tests/test_torch_prng.py``. ``choice`` with ``p``
   adds a ``cumsum`` whose sums XLA orders its own way.
+- ``uniform``, ``normal`` and ``gumbel`` also draw in bfloat16, as JAX
+  draws a dtype of fewer than 8 mantissa bits: one byte a value (each
+  32-bit word of the stream split into four, low byte first), the
+  mantissa from its 7 high bits, and every op rounded to bf16 after it
+  as XLA's CPU backend rounds it (upcast to f32, one op, round to
+  nearest even); ``erf_inv`` and ``log`` run in f32 on the upcast value
+  and round once. A bf16 draw takes one of 128 values, and all 128 are
+  held to JAX's in ``tests/test_torch_prng.py``: they match bit for
+  bit.
 - ``normal`` goes through XLA's f32 erfinv polynomial (Giles), ported
   op for op below; ``torch.log1p`` differs from XLA's ``log1p`` in the
   last ulp for some inputs, which leaves a gap of a few ulp on about one
@@ -197,11 +206,48 @@ def _affine(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     return torch.clamp_min(fma_f32(u, span, lo), lo)
 
 
+def _bits8(key: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's 8-bit draw of n values: ceil(n / 4) words of the stream, each
+    split into four bytes, low byte first (``bits.view(uint8)[:n]``)."""
+    words = _hash_counts(key, -(-n // 4))
+    b = torch.stack([(words >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
+    return b.flatten(-2)[..., :n]
+
+
+def _bf16(v: float) -> float:
+    """v rounded to the nearest bf16 (through f32, as a cast of a Python
+    float gives it)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(torch.bfloat16))
+
+
+def _rnd(x: torch.Tensor) -> torch.Tensor:
+    """An f32 result rounded to bf16: XLA's CPU backend computes a bf16 op
+    in f32 and rounds after it."""
+    return x.to(torch.bfloat16)
+
+
+def _uniform_bf16(key: torch.Tensor, n: int, minval: float,
+                  maxval: float) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), jnp.bfloat16, minval, maxval)``:
+    ``max(lo, u * (hi - lo) + lo)``, each op rounded to bf16."""
+    fb = ((_bits8(key, n) >> 1) | 0x3F80).to(torch.int16)
+    u = _rnd(fb.view(torch.bfloat16).float() - 1.0)
+    lo, hi = _bf16(minval), _bf16(maxval)
+    span = _bf16(hi - lo)
+    u = _rnd(_rnd(u.float() * span).float() + lo)
+    return torch.clamp_min(u, lo)
+
+
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (f32)."""
+            maxval: float = 1.0, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """``jax.random.uniform`` in f32 or bf16."""
     shape = _shape(shape)
-    if minval == 0.0 and maxval == 1.0:
+    if dtype == torch.bfloat16:
+        u = _uniform_bf16(key, math.prod(shape), minval, maxval)
+    elif dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
+    elif minval == 0.0 and maxval == 1.0:
         u = _hash_counts(key, math.prod(shape), _bits_to_unit, torch.float32)
     else:
         u = _hash_counts(key, math.prod(shape),
@@ -273,6 +319,8 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
 
 _NORMAL_LO = -1.0 + 2.0 ** -24          # nextafter(-1, 0) in f32
 _SQRT2_F32 = _f32(math.sqrt(2.0))
+_NORMAL_LO_BF16 = -1.0 + 2.0 ** -8      # nextafter(-1, 0) in bf16
+_SQRT2_BF16 = _bf16(math.sqrt(2.0))
 
 
 def _bits_to_erfinv(b: torch.Tensor) -> torch.Tensor:
@@ -283,10 +331,20 @@ def _bits_to_normal(b: torch.Tensor) -> torch.Tensor:
     return _SQRT2_F32 * _bits_to_erfinv(b)
 
 
-def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.normal`` (f32): sqrt(2) erfinv(U(nextafter(-1, 0), 1))."""
+def normal(key: torch.Tensor, shape: Shape = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal`` in f32 or bf16: sqrt(2) erfinv(U(nextafter(-1,
+    0), 1)). In bf16 the erfinv runs in f32 on the bf16 uniform and
+    rounds once; the product with bf16(sqrt 2) rounds again."""
     shape = _shape(shape)
-    z = _hash_counts(key, math.prod(shape), _bits_to_normal, torch.float32)
+    if dtype == torch.bfloat16:
+        u = _uniform_bf16(key, math.prod(shape), _NORMAL_LO_BF16, 1.0)
+        z = _rnd(_rnd(erfinv_f32(u.float())).float() * _SQRT2_BF16)
+    elif dtype == torch.float32:
+        z = _hash_counts(key, math.prod(shape), _bits_to_normal,
+                         torch.float32)
+    else:
+        raise TypeError(f"normal draws float32 or bfloat16, not {dtype}")
     return z.reshape(key.shape[:-1] + shape)
 
 
@@ -318,26 +376,35 @@ def bernoulli(key: torch.Tensor, p: float, shape: Shape = ()) -> torch.Tensor:
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
 
-def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.gumbel`` (f32) in its default ``mode="low"``:
+def gumbel(key: torch.Tensor, shape: Shape = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` in f32 or bf16, in its default ``mode="low"``:
     ``-log(-log(U[tiny, 1)))``, the logs XLA's CPU ``log``
-    (:func:`log_f32`). A batch of M keys gives (M,) + shape."""
+    (:func:`log_f32`); in bf16 each log runs in f32 on the bf16 value and
+    rounds to bf16. A batch of M keys gives (M,) + shape."""
     shape = _shape(shape)
-    g = _hash_counts(
-        key, math.prod(shape),
-        lambda b: -log_f32(-log_f32(_affine(_bits_to_unit(b), _F32_TINY,
-                                            1.0))), torch.float32)
+    if dtype == torch.bfloat16:
+        u = _uniform_bf16(key, math.prod(shape), _F32_TINY, 1.0)
+        g = -_rnd(log_f32((-_rnd(log_f32(u.float()))).float()))
+    elif dtype == torch.float32:
+        g = _hash_counts(
+            key, math.prod(shape),
+            lambda b: -log_f32(-log_f32(_affine(_bits_to_unit(b), _F32_TINY,
+                                                1.0))), torch.float32)
+    else:
+        raise TypeError(f"gumbel draws float32 or bfloat16, not {dtype}")
     return g.reshape(key.shape[:-1] + shape)
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis, with
     replacement and the default ``mode`` ("low"): the argmax of
-    ``gumbel(key, logits.shape) + logits`` (the first index of a tie). A
-    batch of M keys with logits (M, V) draws one index a row, as
-    ``jax.vmap`` over both would."""
-    g = gumbel(key, logits.shape[key.ndim - 1:])
-    return torch.argmax(g + logits.float(), dim=-1)
+    ``gumbel(key, logits.shape) + logits`` (the first index of a tie),
+    the Gumbel drawn and added in the logits' dtype (f32 or bf16) as JAX
+    draws it. A batch of M keys with logits (M, V) draws one index a
+    row, as ``jax.vmap`` over both would."""
+    g = gumbel(key, logits.shape[key.ndim - 1:], dtype=logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int

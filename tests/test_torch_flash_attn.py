@@ -51,13 +51,17 @@ def _t(a):
 
 # (b, sq, skv, h, hkv, dh, causal, window, block): MHA, GQA 8/2, Dh 64
 # and 80, a window, Sq < Skv (suffix-aligned rows), and blocks that do not
-# divide the sequence (the Pallas kernel falls back to one block)
+# divide the sequence (the Pallas kernel falls back to one block); with
+# no mask also a one-row query against many keys (cross-attention in
+# decode) and Sq > Skv
 CASES = [
     (1, 128, 128, 4, 4, 64, True, None, 64),
     (2, 64, 64, 8, 2, 80, True, None, 32),
     (1, 96, 96, 8, 2, 64, True, 24, 64),
     (1, 32, 80, 4, 2, 80, True, None, 64),
     (2, 48, 48, 4, 1, 64, False, None, 32),
+    (2, 1, 150, 6, 6, 64, False, None, 50),
+    (1, 96, 40, 4, 2, 64, False, None, 32),
 ]
 
 

@@ -279,8 +279,10 @@ def test_ssd_scan_refuses_what_it_cannot_hold(cuda):
 
 # (b, sq, skv, h, hkv, dh, causal, window): MHA and GQA, every Dh the
 # kernel takes (64 and 128 whole 64-column boxes, 80, 96 and 160 with a
-# tail box), ragged tiles, Sq < Skv, windows, no mask
-FLASH_CASES = [(1, 100, 100, 4, 4, 64, True, None),
+# tail box), ragged tiles, Sq < Skv, windows, no mask (also one query row
+# against many keys, cross-attention in decode, and Sq > Skv)
+FLASH_CASES = [(3, 1, 1500, 6, 6, 64, False, None),
+               (1, 300, 77, 4, 2, 64, False, None),(1, 100, 100, 4, 4, 64, True, None),
                (2, 130, 130, 8, 2, 80, True, None),
                (1, 50, 77, 4, 2, 64, True, None),
                (1, 200, 200, 4, 4, 80, True, 37),

@@ -153,8 +153,10 @@ def test_embedding_grad_sums_repeats_in_f32():
 
 
 def test_forward_train_remat_and_unported_families():
-    """``remat`` changes what the backward keeps, not the numbers; the
-    families the port does not train yet raise naming ROADMAP item 12."""
+    """``remat`` changes what the backward keeps, not the numbers: for the
+    hybrid zamba2-2.7b, and for the MoE (its aux loss carried out of the
+    checkpointed repeat), Whisper (the encoder's output used inside it)
+    and VLM families, which the port now trains."""
     cfg = dataclasses.replace(reduced_config("zamba2-2.7b"),
                               dtype="float32", param_dtype="float32")
     params = TT.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
@@ -166,11 +168,25 @@ def test_forward_train_remat_and_unported_families():
     assert sorted(outs[0][1]) == ["aux_loss", "loss"]
     for a, b in zip(tree_leaves(outs[0][2]), tree_leaves(outs[1][2])):
         assert torch.equal(a, b)
-    for arch, what in (("granite-moe-3b-a800m", "MoE"),
-                       ("whisper-tiny", "Whisper"),
-                       ("qwen2-vl-72b", "VLM")):
-        with pytest.raises(NotImplementedError, match=f"item 12 \\({what}"):
-            TT.forward_train(params, reduced_config(arch), batch)
+    for arch in ("granite-moe-3b-a800m", "whisper-tiny", "qwen2-vl-72b"):
+        cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        params = TT.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+        b = dict(batch)
+        if cfg.family == "vlm":
+            b["vision_embeds"] = prng.normal(
+                prng.PRNGKey(2, "cpu"), (2, cfg.vision_prefix, cfg.d_model))
+        if cfg.is_encoder_decoder:
+            b["audio_embeds"] = prng.normal(
+                prng.PRNGKey(3, "cpu"), (2, cfg.encoder_seq, cfg.d_model))
+        outs = [steps.make_train_loss_step(cfg, remat=r)(params, b)
+                for r in (True, False)]
+        assert float(outs[0][0]) == float(outs[1][0]), arch
+        assert float(outs[0][1]["aux_loss"]) == float(
+            outs[1][1]["aux_loss"]), arch
+        assert (float(outs[0][1]["aux_loss"]) > 0) == (cfg.moe is not None)
+        for a, g in zip(tree_leaves(outs[0][2]), tree_leaves(outs[1][2])):
+            assert torch.equal(a, g), arch
 
 
 # ------------------------------------------- clip, masks and the aggregate

@@ -250,3 +250,72 @@ def test_batched_keys_draw_as_vmap():
     got = _np(prng.normal(tks, (9,)))
     assert got.shape == (6, 9)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+BF16_SAMPLERS = ("uniform", "normal", "gumbel")
+
+
+def _bf16_words(x):
+    return np.asarray(x).view(np.int16)
+
+
+@pytest.mark.parametrize("name", BF16_SAMPLERS)
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5), (4099,)])
+def test_bf16_draws_bit_equal(name, seed, shape):
+    """bf16 ``uniform``, ``normal`` and ``gumbel``: one byte of the stream
+    a value, every op rounded to bf16 as XLA's CPU backend rounds it; the
+    words equal JAX's, odd sizes (a part-used last word) included."""
+    want = getattr(jax.random, name)(_jkey(seed), shape, jnp.bfloat16)
+    got = getattr(prng, name)(_tkey(seed), shape, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  _bf16_words(want))
+
+
+@pytest.mark.parametrize("name", BF16_SAMPLERS)
+def test_bf16_draws_take_all_128_values_bit_equal(name):
+    """A bf16 draw has 7 random mantissa bits: 128 values. A draw that
+    holds every one of them is bit-equal to JAX's, so each value's
+    erfinv and logs are; and a batch of keys draws as ``jax.vmap``."""
+    want = _bf16_words(getattr(jax.random, name)(_jkey(3), (8192,),
+                                                 jnp.bfloat16))
+    got = getattr(prng, name)(_tkey(3), (8192,), dtype=torch.bfloat16)
+    assert len(np.unique(want)) == 128
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), want)
+    keys = jax.random.split(_jkey(4), 5)
+    want = jax.vmap(lambda k: getattr(jax.random, name)(
+        k, (3, 7), jnp.bfloat16))(keys)
+    got = getattr(prng, name)(prng.split(_tkey(4), 5), (3, 7),
+                              dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  _bf16_words(want))
+
+
+def test_bf16_uniform_in_a_range_bit_equal():
+    want = jax.random.uniform(_jkey(5), (1001,), jnp.bfloat16, -3.0, 2.5)
+    got = prng.uniform(_tkey(5), (1001,), -3.0, 2.5, dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  _bf16_words(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_categorical_on_bf16_logits_draws_jax_indices(seed):
+    """``jax.random.categorical`` draws its Gumbel in the logits' dtype and
+    adds in it: on bf16 logits the indices equal JAX's (an f32 Gumbel
+    added to the upcast logits picks other indices), for one key and a
+    batch of keys; on f32 logits the f32 route."""
+    rng = np.random.default_rng(seed)
+    logits = (2.0 * rng.standard_normal((16, 512))).astype(np.float32)
+    lb = jnp.asarray(logits, jnp.bfloat16)
+    tb = torch.from_numpy(logits).to(torch.bfloat16)
+    want = np.asarray(jax.random.categorical(_jkey(seed), lb))
+    np.testing.assert_array_equal(prng.categorical(_tkey(seed), tb).numpy(),
+                                  want)
+    keys = jax.random.split(_jkey(seed), 16)
+    want = np.asarray(jax.vmap(jax.random.categorical)(keys, lb))
+    got = prng.categorical(prng.split(_tkey(seed), 16), tb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(jax.random.categorical(_jkey(seed), logits))
+    got = prng.categorical(_tkey(seed), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), want)

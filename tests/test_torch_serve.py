@@ -2,8 +2,12 @@
 reference's params carried across (``repro_torch.convert``): ``prefill``
 logits and every cache leaf, then greedy ``decode_step``s with equal
 tokens, for the reduced hybrid (zamba2-2.7b), SSM (mamba2-130m) and dense
-(phi3-mini-3.8b) configs in f32; one bf16 run; ``serve``'s prompt draw
-bit for bit; and bf16 params carried across bit for bit."""
+(phi3-mini-3.8b) configs in f32; one bf16 run; ``serve``'s prompt,
+vision and audio draws bit for bit, and its sampled tokens equal to the
+reference ``serve``'s for one reduced config of each family in f32; and
+bf16 params carried across bit for bit. The MoE, Whisper and VLM
+families' prefill and decode are in ``tests/test_torch_moe.py`` and
+``tests/test_torch_encdec_vlm.py``."""
 import dataclasses
 
 import jax
@@ -150,9 +154,57 @@ def test_serve_draws_the_reference_prompt():
     # the CPU route runs the plain versions: no kernel is launched
     assert ssd_kernel.LAUNCHES["ssd_scan"] == 0
     assert flash_kernel.LAUNCHES["flash_attention_fwd"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_serve.serve("zamba2-2.7b", reduced=True, batch=1, prompt_len=8,
-                      new_tokens=1, greedy=False, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-tiny"])
+def test_serve_draws_the_reference_prefix(arch):
+    """The VLM's vision prefix and Whisper's audio frames, ``0.02 *
+    normal(key, shape, bf16)`` from the third and fourth keys of the
+    seed's split, bit for bit; the VLM's prompt holds prompt_len less the
+    prefix."""
+    batch, prompt_len, seed = 2, 40, 7
+    r = t_serve.serve(arch, reduced=True, batch=batch, prompt_len=prompt_len,
+                      new_tokens=1, seed=seed, device="cpu")
+    cfg = j_reduced(arch)
+    _, tok_key, vis_key, aud_key = jax.random.split(
+        jax.random.PRNGKey(seed), 4)
+    if cfg.family == "vlm":
+        name, key, n = "vision_embeds", vis_key, cfg.vision_prefix
+    else:
+        name, key, n = "audio_embeds", aud_key, cfg.encoder_seq
+    want = 0.02 * jax.random.normal(key, (batch, n, cfg.d_model),
+                                    jnp.bfloat16)
+    assert r[name].dtype == torch.bfloat16
+    np.testing.assert_array_equal(r[name].view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+    s_text = prompt_len - (n if cfg.family == "vlm" else 0)
+    want = jax.random.randint(tok_key, (batch, s_text), 0, cfg.vocab_size)
+    np.testing.assert_array_equal(r["prompt"].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-tiny",
+                                  "qwen2-vl-72b", "zamba2-2.7b"])
+def test_sampled_serve_gives_the_reference_tokens(arch, monkeypatch):
+    """``serve(greedy=False)`` in f32 with the reference's params: each
+    token a categorical draw over the padded vocabulary from the root key
+    split once more a step, as the reference ``serve`` draws it; the
+    tokens equal. (The prefixes are bf16 in both, so Whisper's encoder
+    runs in bf16 there too.)"""
+    from repro.launch import serve as j_serve
+    f32 = dict(dtype="float32", param_dtype="float32")
+    monkeypatch.setattr(j_serve, "reduced_config",
+                        lambda a: dataclasses.replace(j_reduced(a), **f32))
+    monkeypatch.setattr(t_serve, "reduced_config",
+                        lambda a: dataclasses.replace(t_reduced(a), **f32))
+    seed, kw = 3, dict(reduced=True, batch=2, prompt_len=24, new_tokens=8)
+    want = j_serve.serve(arch, seed=seed, greedy=False, **kw)["tokens"]
+    init_key = jax.random.split(jax.random.PRNGKey(seed), 4)[0]
+    jcfg = j_serve.reduced_config(arch)
+    jp = jax.device_get(JT.init_params(init_key, jcfg)[0])
+    tp = convert.lm_params_from_jax(jp, t_serve.reduced_config(arch), "cpu")
+    got = t_serve.serve(arch, seed=seed, greedy=False, device="cpu",
+                        params=tp, **kw)["tokens"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_bf16_params_cross_bit_for_bit():
@@ -214,10 +266,3 @@ def test_init_matches_reference_shapes_dtypes_and_scales(arch):
         np.testing.assert_allclose(float(t.float().std()),
                                    float(np.std(leaf)), rtol=0.15,
                                    atol=1e-6, err_msg=name)
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-tiny",
-                                  "qwen2-vl-72b"])
-def test_families_not_ported_yet_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(None, t_reduced(arch), device="meta")
