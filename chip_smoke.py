@@ -7,6 +7,9 @@
                                          # zamba2-2.7b prefill's times
     python3 chip_smoke.py --time-rows    # only the row kernels' times
                                          # and the kernel_api chain
+    python3 chip_smoke.py --sharded      # only the main path, the
+                                         # sharded and multi-pod phases
+                                         # and the per-shard kernels
 
 Phases, each printing one JSON line:
 
@@ -20,7 +23,8 @@ Phases, each printing one JSON line:
    plain version and a one-call PyTorch yardstick where one exists. The
    PFELS pair at r = 32, d = 9,222,858, also with M = 4 and M = 8
    antenna gains and 8 of the 32 clients dropped (the scenarios'
-   inputs); ``ssd_scan`` at small shapes and
+   inputs), and at r = 8 and r = 1 with zero noise (a rank's call in the
+   sharded cohort); ``ssd_scan`` at small shapes and
    ragged chunks (1 to 100 rows) in f32 (CUDA cores) and bf16 (tensor
    cores; also on misaligned views, which must equal their aligned
    copies, and at P = N = 128), the bf16 route held to the bound derived
@@ -81,7 +85,34 @@ Phases, each printing one JSON line:
    (kernels) against unfused (plain torch), and 31 committed rows (PFELS,
    the baselines, error feedback, the channel models, compressors and
    schedules, resident and streamed) against the reference's digests.
-9. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
+9. ``sharded``: the sharded cohort (``client_sharding="cohort"``) on 4
+   gloo ranks sharing the card, each a spawned process holding the whole
+   replicated state (the gloo backend takes CUDA tensors; NCCL refuses
+   two ranks on one device): the seven ``*-sharded`` golden rows against
+   the committed digests (limit 1e-4) and against their one-process runs
+   on the card (1e-5; run before the ranks start, so that nothing else
+   shares the card while the ranks run), every rank's end state equal
+   byte for byte
+   (sha256), ``fused_combine`` once a round on each rank of a fused row;
+   then the main path's config at full width with 8 clients a rank
+   (``client_sumsq`` and ``fused_combine`` at (8, d) with zero noise,
+   once a round on each rank), 3 rounds: round 1's loss and update norm
+   against ``main_path``'s (within 1e-6), and 3 steps each against one
+   step of the one-process round from the same state (digests within
+   1e-5); the 3 rounds' digests against ``main_path``'s are printed and
+   not held: after round 1 a change of summation order grows through
+   VGG-11's training past 1e-4. Per rank the round times,
+   launches, peak memory and each round's all-reduce and all-gather
+   calls, bytes and seconds (each collective timed between two
+   synchronisations, so that its time includes the wait for the slowest
+   rank), beside ``main_path``'s round times.
+10. ``sharded`` (multi-pod): the production step with a client dim
+   (``make_pfels_train_step(n_clients=2)``): the reduced mamba2-130m in
+   f32 on the card against the CPU, then mamba2-130m at full width (batch
+   8 x 512, 4 rows a client), 3 steps: s/step, peak memory, ``clip_norm``
+   launches (2 a step: once a client a local step), finite metrics and
+   params, the two clients' replicas equal.
+11. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
    PyTorch's defaults around the phase (TF32 on), so that the package's
    own scoping is what is checked: one local step's gradient at
    BENCH_CNN_CIFAR's and VGG-11's widths against the CPU (and without
@@ -91,7 +122,7 @@ Phases, each printing one JSON line:
    round without the package's scope under ``phase_device``'s flags (TF32
    off, nondeterministic algorithms allowed): whether that repeats, and
    what the deterministic algorithms cost in wall and device time.
-10. ``femnist``: the paper's second experiment, PFELS on the full-width
+12. ``femnist``: the paper's second experiment, PFELS on the full-width
    ResNet-18 of FEMNIST (d = 11,189,886) with N = 1000 clients of 50
    synthetic 1x28x28 images under a Dirichlet(0.5) label skew, drawn on
    the card, 3 rounds at the main path's settings: s/round, peak memory,
@@ -99,22 +130,22 @@ Phases, each printing one JSON line:
    labels' skew; one more round twice from one state and key (bit-equal,
    the second profiled: device idle share and time by kernel kind); one
    local step's gradient, card against CPU.
-11. ``streamed``: the streamed bank against the resident one from the
+13. ``streamed``: the streamed bank against the resident one from the
    same state and key, bit for bit: the main path's config (VGG-11,
    N = 1000, 3 rounds; both runs' s/round and peak memory), and PFELS
    with error feedback at BENCH_CNN_CIFAR's width.
-12. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
+14. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
    its own, with the reference's defaults for 10 rounds and at
    population scale (streamed bank, 100,000 clients); its ``--out`` JSON
    checked.
-13. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
+15. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
    granite-moe-3b-a800m (6 padded experts over 4), whisper-tiny and
    qwen2-vl-72b in f32, prefill (with the f32 stub prefix of the last two),
    8 greedy decode steps and 8 sampled ones on the card (kernels) against
    the same params on the CPU (plain versions), the launches against
    those the config implies; and the reduced zamba2-2.7b's bf16 prefill,
    card against CPU, within 3% of max|logit|.
-14. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
+16. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
    random weights from seed 0, each model freed before the next:
    zamba2-2.7b and mamba2-130m (batch 8, prompt 2048, 64 greedy tokens),
    granite-moe-3b-a800m (batch 8, prompt 2048, 64 greedy then 64 sampled
@@ -129,7 +160,7 @@ Phases, each printing one JSON line:
    the MoE prefill's drop fraction; then three warm zamba2-2.7b prefills
    and one more under the profiler: its device time, and each LLM
    kernel's device ms and share of it.
-15. ``llm_train``: PFELS as the optimizer of one transformer that is one
+17. ``llm_train``: PFELS as the optimizer of one transformer that is one
    FL client (``repro_torch.launch.steps.make_pfels_train_step``). First
    one step of the reduced zamba2-2.7b in f32 on the card against the CPU
    route, at the CPU tests' tolerances. Then zamba2-2.7b at full width and
@@ -152,6 +183,14 @@ uses only what every tree of the port has: copy this script into a parent
 commit's checkout (``git archive``) and run it there and here in turns,
 in one call, to compare the two.
 
+``--sharded`` runs the device and build phases, the transmit pair at
+the per-shard shapes, ``main_path`` and the two ``sharded`` phases, and
+prints no result line: the quick check of the sharded cohort. After the
+ranks have ended it also runs 3 unfused one-process rounds of the main
+path's config, which differ from ``main_path`` only in the order of f32
+sums, and prints their drift from ``main_path`` beside the sharded
+run's, as a yardstick.
+
 ``--time-rows`` runs the device phase and then only times the three row
 kernels at the VGG-11 shapes (warm and cold L2; the gather in f32 and
 bf16 with a tensor and a number scale, beside ``index_select``, with the
@@ -161,7 +200,10 @@ tree of the port has, for the same turns with a parent commit.
 
 Then the kernel summary line (the flash row with its times at every
 timed shape under ``by_shape``; the serving kernels' launches summed over
-the serve runs, each run's under ``launches_by_path``), the whole run's
+the serve runs, each run's under ``launches_by_path``; the PFELS pair's
+main-path launches beside the sharded phase's, summed over the ranks,
+under ``launches_by_path``, and its per-shard times under ``per_shard``;
+``clip_norm``'s multi-pod launches), the whole run's
 seconds, the ``nvidia-smi`` name and power limit, and last ``{"ok":
 true, "device": {...}}``. Any failure raises and the
 exit code is non-zero; without a CUDA device it exits 2 and prints no
@@ -188,6 +230,8 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 
 MAIN_R, MAIN_D = 32, 9_222_858
+# the sharded phase's world: gloo ranks sharing the one card
+SHARDED_WORLD = 4
 
 
 def _kernel_modules():
@@ -301,15 +345,19 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _kernel_inputs(r, d, m_ant, seed, dropped, density=0.3):
+def _kernel_inputs(r, d, m_ant, seed, dropped, density=0.3,
+                   zero_noise=False):
     """The transmit pair's inputs; ``dropped`` clients (every
-    ``r // dropped``-th from the first) have a transmit mask of 0."""
+    ``r // dropped``-th from the first) have a transmit mask of 0; with
+    ``zero_noise`` z is 0, as a shard of the sharded cohort passes it."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     u = 0.01 * torch.randn((r, d), generator=g, device=dev)
     mask = (torch.rand((d,), generator=g, device=dev) < density).float()
     z = torch.randn((d,), generator=g, device=dev) * mask
+    if zero_noise:
+        z.zero_()
     gains = 1e-3 + 0.1 * torch.rand((r, m_ant), generator=g, device=dev)
     tx = 1.0 + 100.0 * torch.rand((r,), generator=g, device=dev)
     txm = torch.ones((r,), device=dev)
@@ -323,15 +371,17 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3):
+def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3,
+                     zero_noise=False):
     """One shape: both kernels against their plain versions, twice for
     bit-identity, and (if ``timed``) their times. ``density`` is the
     support's share of d: 0.3 for PFELS, 1 for WFL-P and WFL-PDP;
-    ``dropped`` the clients whose transmit mask is 0."""
+    ``dropped`` the clients whose transmit mask is 0; ``zero_noise`` a
+    shard's call in the sharded cohort (r its clients, z = 0)."""
     import torch
     from repro_torch.kernels.pfels_transmit import kernel, ref
     u, mask, z, gains, tx, txm = _kernel_inputs(r, d, m_ant, seed, dropped,
-                                                density)
+                                                density, zero_noise)
 
     s_k = kernel.client_sumsq(u)
     s_k2 = kernel.client_sumsq(u)
@@ -349,6 +399,7 @@ def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3):
     e_rel = abs(float(e_k) - float(e_p)) / max(abs(float(e_p)), 1e-30)
     line = {"phase": "kernels", "r": r, "d": d, "M": m_ant,
             "dropped": dropped, "support_share": density,
+            "zero_noise": zero_noise,
             "client_sumsq": {"max_rel_err": sum_rel,
                              "max_abs_err": float((s_k - s_p).abs().max()),
                              "bit_identical": bool(torch.equal(s_k, s_k2))},
@@ -1257,6 +1308,15 @@ def phase_kernels():
     for m_ant in (4, 8):
         check_kernels_at(MAIN_R, MAIN_D, m_ant, seed=8 + m_ant, dropped=8,
                          timed=True)
+    # the sharded cohort's per-shard calls: r / 4 = 8 clients a rank at
+    # the main path's width, and one client a rank, with zero noise
+    for name in ("client_sumsq", "fused_combine"):
+        summary[name]["per_shard"] = []
+    for r_shard in (MAIN_R // SHARDED_WORLD, 1):
+        row = check_kernels_at(r_shard, MAIN_D, 1, seed=20 + r_shard,
+                               dropped=0, timed=True, zero_noise=True)
+        for name in ("client_sumsq", "fused_combine"):
+            summary[name]["per_shard"].append({"r": r_shard, **row[name]})
     summary["ssd_scan"] = check_ssd_kernels()
     for i, shape in enumerate(FLASH_SMALL):
         for dtype in ("float32", "bfloat16"):
@@ -1420,6 +1480,7 @@ def phase_main_path(profile: bool):
     m = {k: [float(v) for v in metrics[k]] for k in metrics}
     finite = all(math.isfinite(v) for vs in m.values() for v in vs)
     eps_ok = all(v <= cfg.epsilon for v in m["eps_round"])
+    digests = _run_digests(end, metrics)
     line = {"phase": "main_path", "model": cfg_m.name, "d": d,
             "k": int(m["subcarriers"][0]), "n_clients": cfg.num_clients,
             "r": cfg.clients_per_round, "tau": cfg.local_steps,
@@ -1450,7 +1511,8 @@ def phase_main_path(profile: bool):
         profile_round(trainer, end, x, y)
     del x, y, xt, yt, end, state, trainer
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"digests": digests,
+                      "round_wall_s": line["round_wall_s"]}
 
 
 def phase_kernel_api():
@@ -1801,10 +1863,10 @@ def _digest(a):
     return [float(a.sum()), float(np.abs(a).sum()), float((a * a).sum())]
 
 
-def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
-    """``_run_digests`` of ``Trainer.run`` for ``cfg.rounds`` rounds from
-    ``params`` and data ``x``, ``y``, all moved to ``device``, with the
-    golden problem's keys (init key 1, run key 2)."""
+def _round_run(model_cfg, params, x, y, cfg, device="cuda"):
+    """``Trainer.run`` for ``cfg.rounds`` rounds from ``params`` and data
+    ``x``, ``y``, all moved to ``device``, with the golden problem's keys
+    (init key 1, run key 2) -> (end state, metrics)."""
     import torch
     from repro_torch import prng
     from repro_torch.fl import Trainer, replace
@@ -1819,10 +1881,18 @@ def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
                                rounds=cfg.rounds)
     if device != "cpu":
         torch.cuda.synchronize()
-    return _run_digests(end, metrics)
+    return end, metrics
 
 
-def _golden_digests(**overrides):
+def _round_digests(model_cfg, params, x, y, cfg, device="cuda"):
+    """``_run_digests`` of :func:`_round_run`."""
+    return _run_digests(*_round_run(model_cfg, params, x, y, cfg, device))
+
+
+def _golden_run(**overrides):
+    """The golden problem's run (``tools/update_goldens.py``: BENCH_MLP,
+    N = 20, r = 4, tau = 2, 2 rounds) with the config ``overrides`` on
+    the card -> (end state, metrics)."""
     from repro_torch import prng
     from repro_torch.configs import BENCH_MLP, PFELSConfig
     from repro_torch.data import make_federated_classification
@@ -1836,7 +1906,11 @@ def _golden_digests(**overrides):
     base = PFELSConfig(num_clients=20, clients_per_round=4, local_steps=2,
                        local_lr=0.05, compression_ratio=0.3, epsilon=2.0,
                        rounds=2)
-    return _round_digests(BENCH_MLP, params, x, y, _config(base, overrides))
+    return _round_run(BENCH_MLP, params, x, y, _config(base, overrides))
+
+
+def _golden_digests(**overrides):
+    return _run_digests(*_golden_run(**overrides))
 
 
 def _max_rel_gap(a, b):
@@ -1937,6 +2011,334 @@ def phase_parity():
             failures.append(f"{name} digests disagree with the reference")
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+# the committed *-sharded golden rows (tools/update_goldens.py: 8 devices,
+# cohort_shape(4, 8) = (2, 2), as cohort_shape(4, 4) is on 4 ranks), each
+# with its one-process counterpart's config
+SHARDED_GOLDEN_ROWS = {
+    **{f"{alg}-sharded": dict(algorithm=alg, use_fused_kernel=False)
+       for alg in ("pfels", "wfl_p", "wfl_pdp", "dp_fedavg", "fedavg")},
+    "pfels-sharded-fused": {},
+    "comp_stoch_quant-sharded": dict(compressor="stoch_quant", quant_bits=6,
+                                     transmit_clip=0.5),
+}
+# a sharded row against its one-process run on the card: the gloo ring
+# sums the 4 shards' partials in another order (on the CPU the gap is at
+# most 2.2e-7, tests/test_torch_sharded.py)
+SHARDED_VS_ONE_PROCESS_TOL = 1e-5
+SHARDED_ROUNDS = 3
+SHARDED_TIMEOUT_S = 600
+
+
+def _state_sha256(end, metrics):
+    """A hash of a run's end params, last Delta_hat, bank residuals and
+    metrics, byte for byte: equal hashes on two ranks are equal bits."""
+    import hashlib
+    from repro_torch.tree import ravel
+    h = hashlib.sha256()
+    parts = [ravel(end.params), end.prev_delta]
+    if end.bank.residuals is not None:
+        parts.append(end.bank.residuals)
+    parts += [metrics[k] for k in sorted(metrics)]
+    for t in parts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sharded_rank(rank, world, init_file, out_path):
+    """One rank of the ``sharded`` phase, in a process of its own: joins a
+    gloo world over ``init_file`` on card 0, runs the seven sharded golden
+    rows and then the main path's config with the cohort sharded, and
+    writes what it saw to ``out_path`` as JSON. Each collective is timed
+    between two synchronisations (which the round times then include)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    comm = []
+
+    def timed(name, arg):
+        real = getattr(dist, name)
+
+        def call(*args, **kw):
+            t = args[arg]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            comm.append((name, t.numel() * t.element_size(),
+                         time.perf_counter() - t0))
+            return out
+        return call
+
+    dist.all_reduce = timed("all_reduce", 0)
+    dist.all_gather = timed("all_gather", 1)
+
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10, PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.fl import Trainer
+    from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.models import cnn
+
+    out = {"rank": rank, "rows": {}}
+    for name, kw in SHARDED_GOLDEN_ROWS.items():
+        kernel.reset_launch_counts()
+        end, metrics = _golden_run(client_sharding="cohort", **kw)
+        out["rows"][name] = {"digests": _run_digests(end, metrics),
+                             "sha256": _state_sha256(end, metrics),
+                             "launches": dict(kernel.LAUNCHES)}
+    del end, metrics
+
+    params, x, y, d = vgg_problem()
+    cfg = PFELSConfig(transmit_clip=0.25, use_fused_kernel=True,
+                      channel=scaled_channel(d), client_sharding="cohort")
+    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(
+        p, PAPER_VGG11_CIFAR10, b), params)
+    state = trainer.init(prng.PRNGKey(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.clear()
+    marks, per_round = [time.perf_counter()], []
+
+    def on_round(t, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        per_round.append({
+            "calls": {n: sum(1 for c in comm if c[0] == n)
+                      for n in ("all_reduce", "all_gather")},
+            "bytes": {n: sum(c[1] for c in comm if c[0] == n)
+                      for n in ("all_reduce", "all_gather")},
+            "seconds": {n: sum(c[2] for c in comm if c[0] == n)
+                        for n in ("all_reduce", "all_gather")}})
+        comm.clear()
+
+    kernel.reset_launch_counts()
+    end, metrics = trainer.run(state, x, y, rounds=SHARDED_ROUNDS,
+                               on_round=on_round)
+    torch.cuda.synchronize()
+    launches = dict(kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # each of SHARDED_ROUNDS steps from the state the sharded steps reached,
+    # beside (on rank 0) one step of the one-process round from the same
+    # state: the gap of each round on its own, without the drift of the
+    # rounds before it
+    one_process = (Trainer(dataclasses.replace(cfg, client_sharding="none"),
+                           trainer.loss_fn, params) if rank == 0 else None)
+    steps, cur = [], state
+    for _ in range(SHARDED_ROUNDS):
+        nxt, m = trainer.step(cur, x, y)
+        m = {k: v[None] for k, v in m.items()}
+        row = {"sha256": _state_sha256(nxt, m)}
+        if one_process is not None:
+            ref_state, ref_m = one_process.step(cur, x, y)
+            row["gap_vs_one_process"] = _digest_gaps(
+                _run_digests(nxt, m), _run_digests(
+                    ref_state, {k: v[None] for k, v in ref_m.items()}))
+        steps.append(row)
+        cur = nxt
+    out["full_width"] = {
+        "steps": steps,
+        "d": d, "shards": trainer.cohort.shards,
+        "clients": [trainer.cohort.clients.start,
+                    trainer.cohort.clients.stop],
+        "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+        "launches": launches,
+        "peak_memory_bytes": peak,
+        "collectives_per_round": per_round,
+        "digests": _run_digests(end, metrics),
+        "sha256": _state_sha256(end, metrics)}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_ranks(world):
+    """Starts ``world`` ranks of :func:`_sharded_rank` (spawned, gloo over
+    a ``file://`` rendezvous) -> (processes, temporary directory)."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(rank, world, os.path.join(tmp, "init"),
+                               os.path.join(tmp, f"rank{rank}.json")))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    return procs, tmp
+
+
+def _join_ranks(procs, tmp):
+    """Waits for every rank, stops any left running, and reads what each
+    wrote; any rank that failed fails the phase."""
+    import shutil
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    try:
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"sharded ranks exited with {codes}")
+        results = []
+        for rank in range(len(procs)):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _vgg_unfused_rounds():
+    """The main path's config in this process, unfused: ``SHARDED_ROUNDS`` rounds that differ from ``main_path``
+    only in the order of the transmit's f32 sums -> their digests."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import PAPER_VGG11_CIFAR10, PFELSConfig
+    from repro_torch.core.channel import scaled_channel
+    from repro_torch.fl import Trainer
+    from repro_torch.models import cnn
+    params, x, y, d = vgg_problem()
+    cfg = PFELSConfig(transmit_clip=0.25, use_fused_kernel=False,
+                      channel=scaled_channel(d))
+    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(
+        p, PAPER_VGG11_CIFAR10, b), params)
+    out = _run_digests(*trainer.run(trainer.init(prng.PRNGKey(1)), x, y,
+                                    rounds=SHARDED_ROUNDS))
+    del params, x, y, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded(main_info, yardstick=False):
+    """The sharded cohort (``client_sharding="cohort"``) on
+    ``SHARDED_WORLD`` gloo ranks sharing the card, each a spawned process
+    that holds the whole replicated state: the seven sharded golden rows
+    against the committed digests and against their one-process runs
+    (run before the ranks start, so that the ranks have the card to
+    themselves), every rank's end state equal bit for bit; then the main
+    path's config at full width (8 clients a rank, ``fused_combine`` at
+    (8, d) with zero noise) against ``main_info``, the main path's
+    digests and round times: round 1 against the main path's, each of 3
+    steps against the one-process step from the same state, and the 3
+    rounds' drift from the main path. With ``yardstick`` (``--sharded``)
+    that drift is printed beside the one of unfused one-process rounds,
+    run after the ranks have ended. Returns the transmit pair's launches
+    summed over the ranks, by path."""
+    import torch
+    from repro_torch.kernels.pfels_transmit import kernel
+    t_phase = time.perf_counter()
+    one_process = {name: _golden_digests(**kw)
+                   for name, kw in SHARDED_GOLDEN_ROWS.items()}
+    torch.cuda.empty_cache()
+    ranks = _join_ranks(*_spawn_ranks(SHARDED_WORLD))
+    vgg_unfused = _vgg_unfused_rounds() if yardstick else None
+    torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "golden_digests.json")) as f:
+        golden = json.load(f)["cases"]
+    failures = []
+    gaps, launches = {}, {}
+    for name in SHARDED_GOLDEN_ROWS:
+        got = ranks[0]["rows"][name]["digests"]
+        g = golden[name]
+        want = {"params": g["params"], "prev_delta": g["prev_delta"],
+                **{k: g["metrics"][k] for k in ("train_loss", "update_norm",
+                                                "beta", "energy",
+                                                "eps_round")}}
+        gaps[name] = {"vs_reference": _max_rel_gap(got, want),
+                      "vs_one_process": _max_rel_gap(got,
+                                                     one_process[name])}
+        launches[name] = [r["rows"][name]["launches"] for r in ranks]
+        if not gaps[name]["vs_reference"] <= 1e-4:
+            failures.append(f"{name} disagrees with the reference")
+        if not gaps[name]["vs_one_process"] <= SHARDED_VS_ONE_PROCESS_TOL:
+            failures.append(f"{name} disagrees with its one-process run")
+        if len({r["rows"][name]["sha256"] for r in ranks}) != 1:
+            failures.append(f"{name}: the ranks' states differ")
+        fused = SHARDED_GOLDEN_ROWS[name].get("use_fused_kernel", True)
+        want_launches = {"client_sumsq": 0,
+                         "fused_combine": 2 if fused else 0}
+        if any(n != want_launches for n in launches[name]):
+            failures.append(f"{name}: launches {launches[name]}, expected "
+                            f"{want_launches} on each rank")
+    emit({"phase": "sharded", "part": "golden rows",
+          "ranks": SHARDED_WORLD, "backend": "gloo", "rows": len(gaps),
+          "max_rel_gap": gaps, "launches_by_rank": launches,
+          "ranks_bit_equal": {n: len({r["rows"][n]["sha256"]
+                                      for r in ranks}) == 1
+                              for n in SHARDED_GOLDEN_ROWS},
+          "tolerance": {"vs_reference": 1e-4,
+                        "vs_one_process": SHARDED_VS_ONE_PROCESS_TOL}})
+
+    full = [r["full_width"] for r in ranks]
+    main_d = main_info["digests"]
+    got = full[0]["digests"]
+    round1 = {k: abs(got[k][0] - main_d[k][0]) / abs(main_d[k][0])
+              for k in ("train_loss", "update_norm")}
+    digest_gaps = _digest_gaps(got, main_d)
+    step_gaps = [st["gap_vs_one_process"] for st in full[0]["steps"]]
+    # each rank's hashes: the 3-round run's end state, then each step's
+    hashes = [[f["sha256"]] + [st["sha256"] for st in f["steps"]]
+              for f in full]
+    ranks_equal = all(h == hashes[0] for h in hashes)
+    expected = {"client_sumsq": SHARDED_ROUNDS,
+                "fused_combine": SHARDED_ROUNDS}
+    emit({"phase": "sharded", "part": "full width",
+          "model": "VGG-11", "d": full[0]["d"], "r": MAIN_R,
+          "ranks": SHARDED_WORLD, "shards": full[0]["shards"],
+          "rounds": SHARDED_ROUNDS,
+          "main_path_round_wall_s": main_info["round_wall_s"],
+          "per_rank": [{k: f[k] for k in ("clients", "round_wall_s",
+                                          "launches", "peak_memory_bytes",
+                                          "collectives_per_round")}
+                       for f in full],
+          "launches_expected_per_rank": expected,
+          "round1_rel_gap_vs_main_path": round1,
+          "digest_rel_gap_vs_main_path": digest_gaps,
+          "unfused_one_process_rel_gap_vs_main_path": (
+              None if vgg_unfused is None
+              else _digest_gaps(vgg_unfused, main_d)),
+          "step_rel_gaps_vs_one_process_from_same_state": step_gaps,
+          "ranks_bit_equal": ranks_equal,
+          "tolerance": {"round1": 1e-6,
+                        "step_vs_one_process": SHARDED_VS_ONE_PROCESS_TOL},
+          "nvidia_smi": nvidia_smi()})
+    if any(f["launches"] != expected for f in full):
+        failures.append("full width: a rank's launches differ from "
+                        f"{expected}")
+    if not ranks_equal:
+        failures.append("full width: the ranks' states differ")
+    if not max(round1.values()) <= 1e-6:
+        failures.append(f"full width: round 1 off the main path {round1}")
+    if not max(max(g.values()) for g in step_gaps) <= \
+            SHARDED_VS_ONE_PROCESS_TOL:
+        failures.append("full width: a sharded step off the one-process "
+                        "step from the same state")
+    finite = all(math.isfinite(v) for vs in got.values() for v in vs)
+    if not finite:
+        failures.append("full width: non-finite digests")
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {name: {"golden_rows": sum(n[name] for ls in launches.values()
+                                      for n in ls),
+                   "full_width": sum(f["launches"][name] for f in full)}
+            for name in kernel.LAUNCHES}
 
 
 # conv_parity_on_card's tolerances, derived on the CPU by
@@ -2828,10 +3230,10 @@ LLM_METRIC_RTOL, LLM_THETA_OF_UPDATE = 1e-5, 1e-4
 LLM_MASK_DENSITY_TOL = 0.01
 
 
-def _pfels_llm_config(d, tau):
+def _pfels_llm_config(d, tau, n_clients=1):
     from repro_torch.configs import PFELSConfig
     from repro_torch.core.channel import scaled_channel
-    return PFELSConfig(num_clients=1000, clients_per_round=1,
+    return PFELSConfig(num_clients=1000, clients_per_round=n_clients,
                        compression_ratio=0.5, epsilon=4.0, local_lr=0.1,
                        local_steps=tau, channel=scaled_channel(d))
 
@@ -2844,10 +3246,11 @@ def _lm_batch(data, key, batch):
     return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
 
 
-def llm_train_parity():
-    """One production step of the reduced zamba2-2.7b in f32 on the card
+def llm_train_parity(arch="zamba2-2.7b", n_clients=1, phase="llm_train"):
+    """One production step of the reduced ``arch`` in f32 on the card
     (the clip kernel) against the CPU route (its plain version), from the
-    same params, batch and key."""
+    same params, batch and key; with ``n_clients`` > 1 the multi-pod step
+    from the params copied to each client."""
     import dataclasses
 
     import numpy as np
@@ -2856,17 +3259,21 @@ def llm_train_parity():
     from repro_torch.configs import reduced_config
     from repro_torch.data import make_lm_sequences
     from repro_torch.kernels.clip_norm import kernel as clip_kernel
-    from repro_torch.launch.steps import make_pfels_train_step
+    from repro_torch.launch.steps import (clientize_params,
+                                          make_pfels_train_step)
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(reduced_config("zamba2-2.7b"),
+    cfg = dataclasses.replace(reduced_config(arch),
                               dtype="float32", param_dtype="float32")
     params = T.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
     d = T.param_count(params)
+    if n_clients > 1:
+        params = clientize_params(params, n_clients)
     data = make_lm_sequences(prng.PRNGKey(1, "cpu"), n_seqs=16, seq_len=65,
                              vocab=cfg.vocab_size)
     batch = _lm_batch(data, prng.PRNGKey(2, "cpu"), 8)
-    step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1), d)
+    step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1, n_clients), d,
+                                 n_clients=n_clients)
     out = {}
     clip_kernel.reset_launch_counts()
     for dev in ("cuda", "cpu"):
@@ -2886,8 +3293,9 @@ def llm_train_parity():
         gap = np.abs(tc[name].float().numpy() - want)
         limit = LLM_THETA_OF_UPDATE * scale + np.spacing(np.abs(want))
         worst = max(worst, float((gap / limit).max()))
-    line = {"phase": "llm_train", "part": "reduced parity on the card",
+    line = {"phase": phase, "part": "reduced parity on the card",
             "arch": cfg.name, "dtype": cfg.dtype, "d": d,
+            "n_clients": n_clients,
             "launches_on_card": {"clip_norm": launches},
             "metric_rel_gaps": metric_gaps,
             "theta_gap_over_limit": worst,
@@ -2896,13 +3304,109 @@ def llm_train_parity():
                          f"update plus one f32 ulp"}
     emit(line)
     failures = []
-    if launches != 1:
+    if launches != n_clients:
         failures.append(f"reduced step launched clip_norm {launches} "
-                        f"times, expected 1")
+                        f"times, expected {n_clients}")
     if not (max(metric_gaps.values()) <= LLM_METRIC_RTOL and worst <= 1.0):
         failures.append("reduced step: the card and the CPU disagree")
     if failures:
         raise AssertionError("; ".join(failures))
+
+
+MULTI_POD_ARCH, MULTI_POD_CLIENTS, MULTI_POD_STEPS = "mamba2-130m", 2, 3
+
+
+def phase_multi_pod():
+    """The multi-pod production step (``make_pfels_train_step`` with
+    ``n_clients`` 2: a client dim on every param, each client's local
+    update on its half of the batch, the AirComp sum over the clients):
+    first the reduced config on the card against the CPU, then
+    mamba2-130m at its full published width and depth (its dtype, random
+    weights from seed 0, the example's settings, batch 8 x 512 tokens,
+    4 rows a client), ``MULTI_POD_STEPS`` steps at tau = 1: s/step, the
+    steps' peak memory, the ``clip_norm`` launches (once a client a local step) and
+    finite metrics and params; then, for comparison, one single-client
+    step on one client's slice (its time and peak). Returns the multi-pod
+    steps' launches."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_sequences
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.launch.steps import (clientize_params,
+                                          make_pfels_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    llm_train_parity(MULTI_POD_ARCH, MULTI_POD_CLIENTS, phase="sharded")
+    n = MULTI_POD_CLIENTS
+    cfg = get_config(MULTI_POD_ARCH)
+    key = prng.PRNGKey(0)
+    torch.cuda.empty_cache()
+    params = T.init_params(key, cfg)
+    d = T.param_count(params)
+    params = clientize_params(params, n)
+    data = make_lm_sequences(prng.PRNGKey(1), n_seqs=2 * LLM_TRAIN_BATCH,
+                             seq_len=LLM_TRAIN_SEQ + 1, vocab=cfg.vocab_size)
+    step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1, n), d,
+                                 n_clients=n)
+    keys = [prng.fold_in(key, i) for i in range(MULTI_POD_STEPS)]
+    batches = [_lm_batch(data, k, LLM_TRAIN_BATCH) for k in keys]
+    torch.cuda.synchronize()
+    # the steps' own peak: make_lm_sequences' (vocab, vocab) f32 logits
+    # (50,280^2 x 4 bytes = 10.1 GB) and their temporaries are freed
+    torch.cuda.reset_peak_memory_stats()
+    clip_kernel.reset_launch_counts()
+    secs, metrics = [], []
+    for batch, k in zip(batches, keys):
+        t0 = time.perf_counter()
+        params, m = step(params, batch, k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({name: float(v) for name, v in m.items()})
+    launches = clip_kernel.LAUNCHES["clip_norm"]
+    expected = n * MULTI_POD_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    finite_params = all(bool(torch.isfinite(x).all())
+                        for x in tree_leaves(params))
+    replicas_equal = all(bool(torch.equal(x[0], x[i]))
+                         for x in tree_leaves(params) for i in range(1, n))
+    finite = all(math.isfinite(m[k]) for m in metrics
+                 for k in ("loss", "grad_norm", "beta", "energy"))
+    # one client's own step on its slice of the first batch, beside
+    single = make_pfels_train_step(cfg, _pfels_llm_config(d, 1), d)
+    one = tree_map(lambda x: x[0].clone(), params)
+    half = {k: v[:LLM_TRAIN_BATCH // n] for k, v in batches[0].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    single(one, half, keys[0])
+    torch.cuda.synchronize()
+    single_client = {"s": time.perf_counter() - t0,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del one
+    emit({"phase": "sharded", "part": "multi-pod step, full width",
+          "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "d": d,
+          "n_clients": n, "batch": LLM_TRAIN_BATCH, "seq": LLM_TRAIN_SEQ,
+          "tau": 1, "s_per_step": secs, "peak_memory_bytes": peak,
+          "launches": {"clip_norm": launches},
+          "launches_expected": {"clip_norm": expected},
+          "metrics": metrics, "finite_metrics": finite,
+          "finite_params": finite_params,
+          "client_replicas_equal": replicas_equal,
+          "single_client_step_on_one_slice": single_client,
+          "seconds": time.perf_counter() - t_phase})
+    del params, data, batches
+    torch.cuda.empty_cache()
+    if launches != expected or not (finite and finite_params
+                                    and replicas_equal):
+        raise AssertionError(f"multi-pod step: clip_norm launched "
+                             f"{launches} times (expected {expected}), "
+                             f"finite {finite} and {finite_params}, "
+                             f"replicas equal {replicas_equal}")
+    return launches
 
 
 def check_clip_flat(n, seed):
@@ -3213,6 +3717,11 @@ def main(argv=None) -> int:
                     help="only time ssd_scan at the two serving prefills "
                          "and a warm zamba2-2.7b prefill (no checks, no "
                          "result line): the comparison with a parent tree")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only the transmit pair at the per-shard shapes, "
+                         "the main path, the sharded cohort on 4 gloo "
+                         "ranks sharing the card and the multi-pod step "
+                         "(no result line)")
     ap.add_argument("--time-rows", action="store_true",
                     help="only time the three row kernels at the VGG-11 "
                          "shapes and run the kernel_api chain (no result "
@@ -3237,8 +3746,17 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     phase_build()
+    if args.sharded:
+        for r_shard in (MAIN_R // SHARDED_WORLD, 1):
+            check_kernels_at(r_shard, MAIN_D, 1, seed=20 + r_shard,
+                             dropped=0, timed=True, zero_noise=True)
+        _, main_info = phase_main_path(False)
+        phase_multi_pod()
+        phase_sharded(main_info, yardstick=True)
+        print(smi, flush=True)
+        return 0
     summary = phase_kernels()
-    launches = phase_main_path(args.profile)
+    launches, main_info = phase_main_path(args.profile)
     launches.update(phase_kernel_api())
     problem = vgg_problem()
     phase_baselines(args.profile, problem)
@@ -3246,6 +3764,8 @@ def main(argv=None) -> int:
     del problem
     torch.cuda.empty_cache()
     phase_parity()
+    sharded_launches = phase_sharded(main_info)
+    multi_pod_launches = phase_multi_pod()
     phase_conv_parity()
     phase_femnist()
     phase_streamed()
@@ -3264,7 +3784,12 @@ def main(argv=None) -> int:
     launches["clip_norm"], summary["clip_norm"] = phase_llm_train(
         args.profile)
     summary["clip_norm"].update({"launches_kernel_api": api_launches,
+                                 "launches_multi_pod": multi_pod_launches,
                                  "at_vgg11_rows": at_vgg11})
+    for name, by_path in sharded_launches.items():
+        summary[name]["launches_by_path"] = {
+            "main_path": launches[name],
+            "sharded_summed_over_ranks": by_path}
     from repro_torch.kernels.pfels_transmit import kernel
     pfels_src = "src/repro_torch/csrc/pfels_transmit.cu"
     rows = [("pfels_transmit.client_sumsq", "client_sumsq", pfels_src,

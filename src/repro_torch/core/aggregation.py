@@ -1,14 +1,16 @@
-"""Aggregation (port of the single-device part of
-``repro/core/aggregation.py``): in simulation mode, AirComp through the
-unfused plain-torch path or the fused path through the ``pfels_transmit``
-kernels, and the digital baselines' server-side aggregates (DP-FedAvg,
-FedAvg); in production mode, the per-tensor PFELS transform of one
-pod-scale client (``pfels_production_aggregate``)."""
+"""Aggregation (port of ``repro/core/aggregation.py``): in simulation
+mode, AirComp through the unfused plain-torch path or the fused path
+through the ``pfels_transmit`` kernels, on one process or with the
+cohort's clients over the ranks of a process group (the superposition an
+``all_reduce``), and the digital baselines' server-side aggregates
+(DP-FedAvg, FedAvg); in production mode, the per-tensor PFELS transform
+of pod-scale clients (``pfels_production_aggregate``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core import channel as chan
@@ -88,6 +90,57 @@ def aircomp_aggregate_fused(updates_flat, idx, gains, beta, noise_key, *,
         active=active)
 
 
+def aircomp_aggregate_sharded(updates_local, idx, gains_local, beta,
+                              noise_key, *, d: int, sigma0: float, r: int,
+                              cohort, unbiased_rescale: bool = False,
+                              gains_est_local=None,
+                              clip: Optional[float] = None,
+                              use_kernel: bool = False,
+                              tx_mask_local=None, active=None):
+    """Sharded-cohort variant of :func:`aircomp_aggregate` (DESIGN.md §7).
+
+    Each rank of ``cohort`` (a ``launch.mesh.CohortGroup``) passes its
+    (r_local, d) slice of the cohort's updates and its (r_local,) or
+    (r_local, M) slice of the gains (and of ``gains_est_local`` and
+    ``tx_mask_local``); a spare rank passes empty slices. Each computes
+    its partial MAC sum and transmit energy, through the fused kernels
+    (``use_kernel``) or the plain dense chain, with a zero noise vector;
+    one ``all_reduce`` sums the partials, the energies and the realized
+    transmitter counts over the ranks. The channel noise is drawn once
+    from ``noise_key``, the draw of the one-process paths, on every rank,
+    and added after the sum. ``beta`` must be designed from the global
+    gains. Returns (delta_hat (d,), energy, y (k,)), the same bits on
+    every rank."""
+    mask, z_dense = transmit_ref.dense_noise_and_mask(idx, noise_key,
+                                                      sigma0, d, active)
+    u = updates_local.float().contiguous()
+    zeros = torch.zeros((d,), dtype=torch.float32, device=u.device)
+    if u.shape[0] == 0:
+        y_part, e_part = zeros, zeros.new_zeros(())
+    elif use_kernel:
+        from repro_torch.kernels.pfels_transmit.ops import fused_pipeline
+        y_part, e_part = fused_pipeline(
+            u, mask, zeros, gains_local, beta, clip=clip,
+            gains_est=gains_est_local, tx_mask=tx_mask_local)
+    else:
+        scales = transmit_ref.clip_scales(u, clip)
+        tx, rx = transmit_ref.transmit_coeffs(gains_local, beta, scales,
+                                              gains_est_local)
+        rx_eff, tx_sq = transmit_ref.masked_coeffs(tx, rx, tx_mask_local)
+        y_part, e_part = transmit_ref.pfels_transmit_ref(u, mask, zeros,
+                                                         rx_eff, tx_sq)
+    n_tx = (zeros.new_zeros(()) if tx_mask_local is None
+            else torch.sum(tx_mask_local.float()))
+    summed = cohort.all_reduce(torch.cat([y_part, e_part.reshape(1),
+                                          n_tx.reshape(1)]))
+    y_dense = summed[:d] + z_dense
+    r_div = r if tx_mask_local is None else torch.clamp_min(summed[d + 1],
+                                                            1.0)
+    delta_hat = transmit_ref.server_unscale(y_dense, idx, beta, r_div, d,
+                                            unbiased_rescale)
+    return delta_hat, summed[d], y_dense[idx]
+
+
 def dp_fedavg_aggregate(updates_flat, clip: float, sigma: float, noise_key,
                         *, r: int):
     """DP-FedAvg baseline (Alg. 1 lines 11/13): per-client l2 clip to C,
@@ -112,24 +165,22 @@ def fedavg_aggregate(updates_flat):
 
 def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
                                sigma0: float, noise_key,
-                               axis_name: Optional[str] = None,
+                               group: Optional[dist.ProcessGroup] = None,
                                unbiased_rescale: bool = False,
                                compression_p: float = 1.0):
-    """PFELS aggregation of a pod-scale client (DESIGN.md §3), per tensor
-    of its f32 update tree: mask, scale by beta (the channel gain
-    pre-inverted, so the received signal is beta A Delta), add the channel
-    noise ``sigma0 * mask * normal`` on the transmitted coordinates (one
-    key a leaf from ``split(noise_key, n_leaves)``), unscale by
-    1/(r beta), and by 1/p with ``unbiased_rescale``. The superposition
-    over clients (``axis_name``, a psum in the reference) waits for the
-    sharded cohort. As XLA's CPU backend computes the reference's
-    ``x * beta + sigma0 * m * z``, the first product and the add fuse into
-    one FMA over the rounded noise product, so the result is the
-    reference's bit for bit where the draw is."""
-    if axis_name is not None:
-        raise NotImplementedError("the cross-client superposition of the "
-                                  "production aggregate is not ported yet: "
-                                  "ROADMAP Queue 1, item 11")
+    """PFELS aggregation of pod-scale clients (DESIGN.md §3), per tensor
+    of each client's f32 update tree: mask, scale by beta (the channel
+    gain pre-inverted, so the received signal is beta A Delta), superpose
+    the clients (``all_reduce`` over ``group``, one client a rank; the
+    reference's psum over ``axis_name``), add the channel noise
+    ``sigma0 * mask * normal`` on the transmitted coordinates (one key a
+    leaf from ``split(noise_key, n_leaves)``), unscale by 1/(r beta), and
+    by 1/p with ``unbiased_rescale``.
+
+    ``group=None`` is the single-client route. There, as XLA's CPU backend
+    computes the reference's ``x * beta + sigma0 * m * z``, the first
+    product and the add fuse into one FMA over the rounded noise product,
+    so the result is the reference's bit for bit where the draw is."""
     leaves = tree_leaves(update_tree)
     keys = prng.split(noise_key, len(leaves))
     scale = 1.0 / (r * beta)
@@ -139,5 +190,11 @@ def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
     for x, m, k in zip(leaves, tree_leaves(masks), keys):
         mf = m.to(x.dtype)
         z = prng.normal(k, tuple(x.shape)).to(x.dtype)
-        out.append(prng.fma_f32(x * mf, beta, (sigma0 * mf) * z) * scale)
+        if group is None:
+            out.append(prng.fma_f32(x * mf, beta, (sigma0 * mf) * z)
+                       * scale)
+        else:
+            summed = (x * mf) * beta
+            dist.all_reduce(summed, group=group)
+            out.append((summed + (sigma0 * mf) * z) * scale)
     return tree_unflatten(update_tree, out)

@@ -26,6 +26,8 @@ def row_norms(u: torch.Tensor) -> torch.Tensor:
     ``torch.linalg.vector_norm`` keeps one f32 running sum a row (4.2e-5
     off the f64 norm of a ResNet update of 705,486 coordinates)."""
     u = u.float()
+    if u.shape[0] == 0:
+        return u.new_empty((0,))
     return torch.sqrt(torch.stack([torch.sum(row * row) for row in u]))
 
 

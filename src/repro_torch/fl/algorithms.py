@@ -42,9 +42,12 @@ class Algorithm:
 _REGISTRY: Dict[str, Algorithm] = {}
 
 
-def register_algorithm(name: str, alg: Algorithm) -> Algorithm:
-    if name in _REGISTRY:
-        raise ValueError(f"algorithm {name!r} already registered")
+def register_algorithm(name: str, alg: Algorithm, *,
+                       overwrite: bool = False) -> Algorithm:
+    """Add a transmit scheme under ``PFELSConfig.algorithm == name``."""
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"algorithm {name!r} already registered "
+                         f"(pass overwrite=True to replace)")
     if alg.aircomp and (alg.select_support is None or alg.design_beta is None):
         raise ValueError(f"aircomp algorithm {name!r} needs select_support "
                          f"and design_beta hooks")
@@ -53,6 +56,10 @@ def register_algorithm(name: str, alg: Algorithm) -> Algorithm:
                          f"server_aggregate hook")
     _REGISTRY[name] = alg
     return alg
+
+
+def unregister_algorithm(name: str) -> None:
+    _REGISTRY.pop(name, None)
 
 
 def get_algorithm(name: str) -> Algorithm:

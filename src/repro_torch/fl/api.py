@@ -15,6 +15,13 @@ tensors) or ``streamed`` (host memory, with the cohort's data made or
 copied in by ``data.loader.prefetch_cohorts`` while the round before
 computes). The two give bit-equal runs under the same key.
 
+``cfg.client_sharding="cohort"`` splits each round's r clients over the
+ranks of a ``torch.distributed`` group (``launch.mesh``): every rank
+builds its own ``Trainer`` and holds the whole replicated state on its
+own device, and every rank's state stays the same bit for bit. The
+caller initialises the group (gloo for ranks that share a card or run on
+the CPU, NCCL with one card a rank).
+
 PRNG contract (the reference's): ``init(key)`` draws the power limits from
 ``key`` and forks the run stream ``fold_in(key, 0x5047)`` and the channel
 stream ``fold_in(key, 0x4348)``. ``step`` uses ``state.key`` whole as the
@@ -28,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.configs.base import PFELSConfig
@@ -63,11 +71,13 @@ class TrainState:
 class Trainer:
     """The Alg. 2 server loop over a registry algorithm.
 
-    ``Trainer(cfg, loss_fn, params_template, device="cuda")``: ``loss_fn
-    (params, {"x", "y"}) -> (loss, aux)``; ``params_template`` defines d
-    and the flat layout and is the default initial params. Every tensor
-    of the state lives on ``device``. Options the port does not run yet
-    raise ``NotImplementedError`` here. With ``cfg.error_feedback``, or a
+    ``Trainer(cfg, loss_fn, params_template, device="cuda", group=None)``:
+    ``loss_fn(params, {"x", "y"}) -> (loss, aux)``; ``params_template``
+    defines d and the flat layout and is the default initial params.
+    Every tensor of the state lives on ``device``. ``group`` is the
+    process group a sharded cohort spreads over (None: the default group;
+    read only with ``client_sharding="cohort"``). With
+    ``cfg.error_feedback``, or a
     compressor that requires it (``top_k_ef``), the bank's (N, d)
     residual memory is updated in place
     (``bank.ResidentBank``), so a state cannot be rerun once a later
@@ -77,8 +87,8 @@ class Trainer:
 
     def __init__(self, cfg: PFELSConfig, loss_fn: Callable,
                  params_template: Params,
-                 device: Union[str, torch.device] = "cuda"):
-        rounds.check_ported(cfg)
+                 device: Union[str, torch.device] = "cuda",
+                 group: Optional[dist.ProcessGroup] = None):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = torch.device(device)
@@ -95,8 +105,14 @@ class Trainer:
             and compressors.carry_required(cfg))
         self.bank = bank_lib.make_bank(cfg.bank_backend, cfg.num_clients,
                                        self.d, ef_on, self.device)
+        self.cohort = rounds.resolve_cohort(cfg, group)
+        if self.bank.backend == "streamed" and self.cohort is not None:
+            raise ValueError(
+                "bank_backend='streamed' is host-driven and does not "
+                "compose with client_sharding='cohort' yet — stream the "
+                "bank OR shard the cohort (DESIGN.md §10)")
         self._cohort_core = rounds.build_cohort_core(
-            cfg, loss_fn, self.d, self.unravel)
+            cfg, loss_fn, self.d, self.unravel, self.cohort)
 
     # ------------------------------------------------------------- state
 

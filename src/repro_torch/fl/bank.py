@@ -37,7 +37,33 @@ def cohort_lane_keys(bank_key, sel):
     return prng.fold_in(bank_key, sel)
 
 
-class ResidentBank:
+class ClientBank:
+    """The backends' interface: ``gather`` and ``scatter`` move the
+    sampled cohort's slice of the bank; nothing else in the round touches
+    (n, d) state."""
+
+    backend: str
+
+    def init(self) -> BankState:
+        raise NotImplementedError
+
+    def gather(self, bank: BankState, sel) -> Optional[torch.Tensor]:
+        """The cohort's (r, d) residual slice, or None without EF."""
+        raise NotImplementedError
+
+    def scatter(self, bank: BankState, sel, new_residuals,
+                lanes) -> BankState:
+        """Write the cohort's updated residual slice and this round's lane
+        keys back, and bump its participation counts."""
+        raise NotImplementedError
+
+    def clone(self, bank: BankState) -> BankState:
+        """A state safe to update without changing the caller's (the
+        state itself where nothing is updated in place)."""
+        return bank
+
+
+class ResidentBank(ClientBank):
     """Dense device tensors. Lanes and counts are updated functionally;
     the residual memory is updated in place, because a copy per round
     would double the largest tensor of the run (36.9 GB at the paper's
@@ -90,7 +116,7 @@ def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(t)
 
 
-class StreamedBank:
+class StreamedBank(ClientBank):
     """The bank in host memory: ``gather`` hands out the cohort's (r, d)
     residual rows (in pinned memory when the Trainer runs on a card, so
     their copy to the card can run asynchronously) and ``scatter`` writes
@@ -157,3 +183,21 @@ def make_bank(backend: str, n: int, d: int, error_feedback: bool,
         return StreamedBank(n, d, error_feedback, device)
     raise ValueError(f"unknown bank backend {backend!r}; "
                      f"choose from {BACKENDS}")
+
+
+def to_host(bank: BankState) -> BankState:
+    """A copy in host memory (a resident state in the streamed layout)."""
+    return BankState(
+        residuals=(None if bank.residuals is None
+                   else bank.residuals.cpu().clone()),
+        lanes=bank.lanes.cpu().clone(), counts=bank.counts.cpu().clone())
+
+
+def to_device(bank: BankState,
+              device: Union[str, torch.device] = "cuda") -> BankState:
+    """A copy on ``device`` (a streamed state in the resident layout)."""
+    return BankState(
+        residuals=(None if bank.residuals is None
+                   else bank.residuals.to(device, copy=True)),
+        lanes=bank.lanes.to(device, copy=True),
+        counts=bank.counts.to(device, copy=True))

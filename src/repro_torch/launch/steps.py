@@ -9,9 +9,11 @@ clip_tree_flat``): the whole gradient tree as one flat f32 buffer, one
 launch a local step. The forward and backward take the plain model
 functions under autograd, as the reference trains.
 
-The reference's multi-pod path (a leading client dim on every param, the
-AirComp sum over it) and its ``clientize_*`` helpers belong with the
-sharded cohort and raise ``NotImplementedError``. The port needs no mesh.
+With ``n_clients`` > 1 it is the reference's multi-pod path, in one
+process: every param carries a leading client dim (``clientize_params``),
+each client takes its local update on its slice of the batch, and the
+AirComp superposition is the sum over the client dim. The port needs no
+mesh.
 
 ``make_prefill_step`` / ``make_serve_step``: thin wrappers over the
 port's ``prefill`` and ``decode_step``.
@@ -28,9 +30,6 @@ from repro_torch.core import aggregation, channel, power_control, randk
 from repro_torch.core.clipping import clip_tree_flat
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-
-_SHARDED = "ROADMAP Queue 1, item 11"
-
 
 def _round_channel(key, pfels: PFELSConfig, d: int, n_clients: int):
     """The round's channel gains and Theorem-5 beta (the same on every
@@ -71,12 +70,18 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
                           remat: bool = True, n_clients: int = 1):
     """Returns step(params, batch, key) -> (new params, metrics), metrics
     {loss, aux_loss, beta, grad_norm, energy} as 0-dim tensors. ``d`` is
-    the params' element count (``transformer.param_count``). One client
-    (``n_clients`` 1) only: more is the reference's multi-pod path."""
-    if n_clients != 1:
-        raise NotImplementedError(f"the multi-pod PFELS step (a client dim "
-                                  f"on every param) is not ported yet: "
-                                  f"{_SHARDED}")
+    the element count of one client's params
+    (``transformer.param_count``).
+
+    ``n_clients`` > 1 is the multi-pod step: ``params`` carry a leading
+    (n_clients,) dim on every leaf, client i trains on rows ``[i B/n,
+    (i + 1) B/n)`` of the batch, one mask tree is drawn from client 0's
+    update (the shared A^t), ``sum_i beta A Delta_i`` gets the channel
+    noise and the 1/(n beta) unscale, and the result is added to every
+    client's params; energy is ``sum_i (beta/g_i)^2 ||A Delta_i||^2`` and
+    the other metrics are the means over the clients."""
+    if n_clients < 1:
+        raise ValueError(f"n_clients must be >= 1, got {n_clients}")
     sigma0 = pfels.channel.noise_std
     accum = max(pfels.grad_accum, 1)
     tau = max(pfels.local_steps, 1)
@@ -155,22 +160,90 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
         return new_params, dict(metrics, loss=loss, beta=beta,
                                 grad_norm=gnorm, energy=energy)
 
-    return step
+    def step_multi(params_c, batch, key):
+        b_local = tree_leaves(batch)[0].shape[0] // n_clients
+        updates, losses, ms, gnorms = [], [], [], []
+        for i in range(n_clients):
+            update, loss, metrics, gnorm = local_update(
+                tree_map(lambda x: x[i], params_c),
+                tree_map(lambda x: x[i * b_local:(i + 1) * b_local], batch))
+            updates.append(tree_leaves(update))
+            losses.append(loss)
+            ms.append(metrics)
+            gnorms.append(gnorm)
+        kc, km, kn = prng.split(key, 3)
+        gains, beta = _round_channel(kc, pfels, d, n_clients)
+        masks = tree_leaves(randk.mask_tree(
+            km, tree_unflatten(params_c, updates[0]),
+            pfels.compression_ratio))
+        scale = 1.0 / (n_clients * beta)
+        if pfels.unbiased_rescale:
+            scale = scale / pfels.compression_ratio
+        # the superposition and each client's masked sum of squares, one
+        # leaf at a time
+        sq = [0] * n_clients
+        delta = []
+        for j, (m, k) in enumerate(zip(masks, prng.split(kn, len(masks)))):
+            summed = None
+            for i in range(n_clients):
+                x = updates[i][j]
+                masked = x * m.to(x.dtype)
+                sq[i] = sq[i] + torch.sum(torch.square(masked))
+                summed = (masked * beta if summed is None
+                          else summed + masked * beta)
+            mf = m.to(summed.dtype)
+            z = prng.normal(k, tuple(summed.shape)).to(summed.dtype)
+            delta.append((summed + (sigma0 * mf) * z) * scale)
+        del updates, masks
+        new_params = tree_map(
+            lambda p_, u: (p_.float() + u.float()[None]).to(p_.dtype),
+            params_c, tree_unflatten(params_c, delta))
+        energy = torch.sum((beta / gains[:n_clients]) ** 2
+                           * torch.stack(sq))
+        metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
+                   for k in ms[0]}
+        return new_params, dict(metrics,
+                                loss=torch.mean(torch.stack(losses)),
+                                beta=beta,
+                                grad_norm=torch.mean(torch.stack(gnorms)),
+                                energy=energy)
+
+    return step if n_clients == 1 else step_multi
 
 
 def clientize_shapes(shapes, n_clients: int):
-    raise NotImplementedError(f"the multi-pod client dim is not ported yet: "
-                              f"{_SHARDED}")
+    """The leading client dim added to a tree of param shapes: each leaf
+    a tensor (on any device, ``meta`` included) -> a ``meta`` tensor of
+    shape (n_clients,) + its shape, in its dtype."""
+    return tree_map(lambda x: torch.empty((n_clients,) + tuple(x.shape),
+                                          dtype=x.dtype, device="meta"),
+                    shapes)
+
+
+def _is_logical_spec(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
 
 
 def clientize_logical(logical, n_clients: int):
-    raise NotImplementedError(f"the multi-pod client dim is not ported yet: "
-                              f"{_SHARDED}")
+    """Every logical spec (a tuple of axis names or None) of a nested
+    tree prefixed with the ``"clients"`` axis."""
+    if _is_logical_spec(logical):
+        return ("clients",) + logical
+    if isinstance(logical, dict):
+        return {k: clientize_logical(v, n_clients)
+                for k, v in logical.items()}
+    if isinstance(logical, (list, tuple)):
+        return type(logical)(clientize_logical(v, n_clients)
+                             for v in logical)
+    return logical
 
 
 def clientize_params(params, n_clients: int):
-    raise NotImplementedError(f"the multi-pod client dim is not ported yet: "
-                              f"{_SHARDED}")
+    """Real params copied along a new leading client dim (the start of a
+    multi-pod run): each client's replica is its own memory."""
+    return tree_map(lambda x: x.unsqueeze(0).repeat(
+        (n_clients,) + (1,) * x.ndim), params)
 
 
 def make_train_loss_step(cfg: ModelConfig, *, remat: bool = True):

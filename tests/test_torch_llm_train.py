@@ -24,6 +24,7 @@ import pytest
 # the imports below need torch, which is skipped where absent
 # ruff: noqa: E402
 torch = pytest.importorskip("torch")
+import torch.distributed as dist
 
 from repro.configs import PFELSConfig as JPFELS
 from repro.configs import reduced_config as j_reduced
@@ -230,7 +231,7 @@ def test_clip_tree_matches_reference(bf16):
                                        np.asarray(j, np.float32)).max()))
 
 
-def test_masks_and_production_aggregate_match_reference():
+def test_masks_and_production_aggregate_match_reference(tmp_path):
     """The masks are bit-equal (they are the shared A^t); the aggregate
     agrees to the ``normal`` gap: at least 97% of its values bit-equal,
     the rest within 1e-6 of its scale; with and without the unbiased
@@ -261,10 +262,25 @@ def test_masks_and_production_aggregate_match_reference():
             assert np.mean(t.numpy() == j) >= 0.97
             np.testing.assert_allclose(t.numpy(), j, rtol=1e-6,
                                        atol=1e-6 * np.abs(j).max())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        aggregation.pfels_production_aggregate(
-            ttree, tmasks, beta=torch.tensor(7.3), r=2, sigma0=1.3,
-            noise_key=tkn, axis_name="pod")
+    # the superposition over clients (the reference's psum over
+    # ``axis_name``) is an all_reduce over a process group: over a world
+    # of one rank it sums one client, and agrees with the single-client
+    # route to rounding (that route fuses the beta product into the noise
+    # add, as XLA does; the group route cannot, the sum lies between)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        grouped = aggregation.pfels_production_aggregate(
+            ttree, tmasks, beta=torch.tensor(7.3), r=1, sigma0=1.3,
+            noise_key=tkn, group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    single = aggregation.pfels_production_aggregate(
+        ttree, tmasks, beta=torch.tensor(7.3), r=1, sigma0=1.3,
+        noise_key=tkn)
+    for g, t in zip(tree_leaves(grouped), tree_leaves(single)):
+        np.testing.assert_allclose(g.numpy(), t.numpy(), rtol=1e-6,
+                                   atol=1e-6 * np.abs(t.numpy()).max())
 
 
 # ------------------------------------------------------------- the steps
@@ -406,16 +422,6 @@ def test_bf16_step_matches_reference():
     for t, j in zip(tree_leaves(randk.mask_tree(tkm, tp, 0.5)),
                     jax.tree.leaves(jrandk.mask_tree(jkm, jp, 0.5))):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
-
-
-def test_multi_pod_path_raises_citing_item_11():
-    cfg = reduced_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        steps.make_pfels_train_step(cfg, PFELSConfig(), 1000, n_clients=2)
-    for fn in (steps.clientize_shapes, steps.clientize_logical,
-               steps.clientize_params):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn({}, 2)
 
 
 def test_prefill_and_serve_steps_wrap_the_model():

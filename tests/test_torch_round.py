@@ -229,15 +229,34 @@ def test_step_and_carried_state_match_reference():
                           np.asarray(jend.bank.counts))
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(client_sharding="cohort"), "item 11"),
-    (dict(bank_backend="streamed", client_sharding="cohort"), "item 11"),
-])
-def test_unported_options_raise(override, item):
+def test_cohort_in_one_process_is_the_unsharded_round():
+    """``client_sharding="cohort"`` without ``torch.distributed`` is one
+    shard: the run is the ``"none"`` run, bit for bit."""
+    runs = []
+    for sharding in ("none", "cohort"):
+        trainer, state, x, y = _port_trainer(client_sharding=sharding)
+        assert (trainer.cohort is None) == (sharding == "none")
+        end, metrics = trainer.run(state, x, y, rounds=ug.ROUNDS)
+        runs.append((ravel(end.params), end.prev_delta, metrics))
+    (pa, da, ma), (pb, db, mb) = runs
+    assert torch.equal(pa, pb) and torch.equal(da, db)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_streamed_bank_with_sharded_cohort_raises_reference_error():
+    """The reference refuses the streamed bank with a sharded cohort
+    (``repro/fl/api.py``); so does the port, with the same error."""
     params, _, _, _, _, loss_fn = _port_problem()
-    cfg = dataclasses.replace(PFELSConfig(**ug.BASE), **override)
-    with pytest.raises(NotImplementedError, match=item):
+    cfg = dataclasses.replace(PFELSConfig(**ug.BASE),
+                              bank_backend="streamed",
+                              client_sharding="cohort")
+    with pytest.raises(ValueError, match="does not compose") as got:
         Trainer(cfg, loss_fn, params, device="cpu")
+    jparams, _, _, jloss_fn, _, _, _, _ = _jax_problem()
+    with pytest.raises(ValueError) as want:
+        JTrainer(JConfig(**ug.BASE, bank_backend="streamed",
+                         client_sharding="cohort"), jloss_fn, jparams)
+    assert str(got.value) == str(want.value)
 
 
 def test_imperfect_csi_matches_reference():

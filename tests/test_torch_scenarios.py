@@ -443,7 +443,12 @@ def test_check_ported_refuses_only_sharding():
                dict(schedule=CompressionSchedule(mode="linear"))):
         Trainer(dataclasses.replace(PFELSConfig(**ug.BASE), **kw), loss_fn,
                 params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the sharded cohort is ported: in one process it is one shard
+    trainer = Trainer(dataclasses.replace(PFELSConfig(**ug.BASE),
+                                          client_sharding="cohort"),
+                      loss_fn, params, device="cpu")
+    assert trainer.cohort.shards == 1
+    with pytest.raises(ValueError, match="unknown client_sharding"):
         Trainer(dataclasses.replace(PFELSConfig(**ug.BASE),
-                                    client_sharding="cohort"),
+                                    client_sharding="pods"),
                 loss_fn, params, device="cpu")
