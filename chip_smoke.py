@@ -17,7 +17,15 @@ Phases, each printing one JSON line:
    matmuls and cuDNN convolutions (cuDNN defaults to TF32).
 2. ``build``: nvcc builds the kernels from ``src/repro_torch/csrc``, one
    process per source, all started together.
-3. ``kernels``: each hand-written kernel against its plain torch version
+3. ``dryrun``: predictions, before the runs they predict, by
+   ``repro_torch.launch.dryrun.dryrun_one`` on the meta device (a
+   one-device mesh, in parallel worker processes): zamba2-2.7b's
+   production step at 8 x 512 and tau = 1 and its serve prefill at
+   8 x 2048, and granite-moe-3b-a800m's step at 8 x 512 at each depth
+   from its 32 layers down to the deepest predicted to peak at no more
+   than 70 GB, the depth its card run takes: peak bytes, FLOPs, bytes
+   moved, model FLOPs, the roofline terms, the kernels' charged work.
+4. ``kernels``: each hand-written kernel against its plain torch version
    on the card, at its main-path shapes and at ragged small shapes; run
    twice for bit-identity; timed with CUDA events beside its bound, the
    plain version and a one-call PyTorch yardstick where one exists. The
@@ -56,21 +64,21 @@ Phases, each printing one JSON line:
    gather's with either scale), the gather also in bf16 and beside
    ``index_select`` alone (the gather without the scale), with its
    ``ptxas`` registers and spills.
-4. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
+5. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
    VGG-11 (d = 9,222,858) with N = 1000 clients of 50 CIFAR-size
    synthetic images, r = 32, tau = 5, transmit clip 0.25, fused kernels,
    3 rounds. Launch counters are zeroed just before and read just after.
-5. ``kernel_api``: the path of the three row kernels, the public kernel
+6. ``kernel_api``: the path of the three row kernels, the public kernel
    API (``clip_flat``, ``row_indices_from_coords``, ``gather_rows``,
    ``combine``), once at VGG-11 width as one transmit and combine;
    counters zeroed just before and read just after; checked against the
    same chain through the plain versions.
-6. ``baselines``: ``Trainer.run`` of WFL-P, WFL-PDP, DP-FedAvg, FedAvg and
+7. ``baselines``: ``Trainer.run`` of WFL-P, WFL-PDP, DP-FedAvg, FedAvg and
    PFELS with error feedback at the main path's config, 2 rounds each:
    s/round, peak memory, metrics and every kernel's launches (the EF run
    holds the 36.9 GB residual bank, freed before the serve phases);
    ``--profile`` adds one profiled round of each.
-7. ``scenarios``: the golden rows' channel models, compressors and
+8. ``scenarios``: the golden rows' channel models, compressors and
    schedules at the main path's config, 2 rounds each: ``markov_fading``
    (rho 0.9), ``mimo_mrc`` (M = 4 and 8), ``dropout`` (0.4),
    ``top_k_ef`` (clip 0.5; the 36.9 GB residual bank, freed after),
@@ -81,11 +89,11 @@ Phases, each printing one JSON line:
    metrics, round 1 once more unfused from the same state and key (digest
    gap limit 1e-4), and for ``markov_fading`` the streamed bank's channel
    carry against the resident one's.
-8. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
+9. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
    (kernels) against unfused (plain torch), and 31 committed rows (PFELS,
    the baselines, error feedback, the channel models, compressors and
    schedules, resident and streamed) against the reference's digests.
-9. ``sharded``: the sharded cohort (``client_sharding="cohort"``) on 4
+10. ``sharded``: the sharded cohort (``client_sharding="cohort"``) on 4
    gloo ranks sharing the card, each a spawned process holding the whole
    replicated state (the gloo backend takes CUDA tensors; NCCL refuses
    two ranks on one device): the seven ``*-sharded`` golden rows against
@@ -106,13 +114,13 @@ Phases, each printing one JSON line:
    calls, bytes and seconds (each collective timed between two
    synchronisations, so that its time includes the wait for the slowest
    rank), beside ``main_path``'s round times.
-10. ``sharded`` (multi-pod): the production step with a client dim
+11. ``sharded`` (multi-pod): the production step with a client dim
    (``make_pfels_train_step(n_clients=2)``): the reduced mamba2-130m in
    f32 on the card against the CPU, then mamba2-130m at full width (batch
    8 x 512, 4 rows a client), 3 steps: s/step, peak memory, ``clip_norm``
    launches (2 a step: once a client a local step), finite metrics and
    params, the two clients' replicas equal.
-11. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
+12. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
    PyTorch's defaults around the phase (TF32 on), so that the package's
    own scoping is what is checked: one local step's gradient at
    BENCH_CNN_CIFAR's and VGG-11's widths against the CPU (and without
@@ -122,7 +130,7 @@ Phases, each printing one JSON line:
    round without the package's scope under ``phase_device``'s flags (TF32
    off, nondeterministic algorithms allowed): whether that repeats, and
    what the deterministic algorithms cost in wall and device time.
-12. ``femnist``: the paper's second experiment, PFELS on the full-width
+13. ``femnist``: the paper's second experiment, PFELS on the full-width
    ResNet-18 of FEMNIST (d = 11,189,886) with N = 1000 clients of 50
    synthetic 1x28x28 images under a Dirichlet(0.5) label skew, drawn on
    the card, 3 rounds at the main path's settings: s/round, peak memory,
@@ -130,22 +138,22 @@ Phases, each printing one JSON line:
    labels' skew; one more round twice from one state and key (bit-equal,
    the second profiled: device idle share and time by kernel kind); one
    local step's gradient, card against CPU.
-13. ``streamed``: the streamed bank against the resident one from the
+14. ``streamed``: the streamed bank against the resident one from the
    same state and key, bit for bit: the main path's config (VGG-11,
    N = 1000, 3 rounds; both runs' s/round and peak memory), and PFELS
    with error feedback at BENCH_CNN_CIFAR's width.
-14. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
+15. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
    its own, with the reference's defaults for 10 rounds and at
    population scale (streamed bank, 100,000 clients); its ``--out`` JSON
    checked.
-15. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
+16. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
    granite-moe-3b-a800m (6 padded experts over 4), whisper-tiny and
    qwen2-vl-72b in f32, prefill (with the f32 stub prefix of the last two),
    8 greedy decode steps and 8 sampled ones on the card (kernels) against
    the same params on the CPU (plain versions), the launches against
    those the config implies; and the reduced zamba2-2.7b's bf16 prefill,
    card against CPU, within 3% of max|logit|.
-16. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
+17. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
    random weights from seed 0, each model freed before the next:
    zamba2-2.7b and mamba2-130m (batch 8, prompt 2048, 64 greedy tokens),
    granite-moe-3b-a800m (batch 8, prompt 2048, 64 greedy then 64 sampled
@@ -158,9 +166,10 @@ Phases, each printing one JSON line:
    prefill and 4 a decode step; qwen2-vl 32, two a layer); prefill s,
    decode tok/s, peak memory, finite logits, in-vocabulary tokens and
    the MoE prefill's drop fraction; then three warm zamba2-2.7b prefills
-   and one more under the profiler: its device time, and each LLM
-   kernel's device ms and share of it.
-17. ``llm_train``: PFELS as the optimizer of one transformer that is one
+   (the first one's peak memory beside the dry run's prediction) and one
+   more under the profiler: its device time, and each LLM kernel's
+   device ms and share of it.
+18. ``llm_train``: PFELS as the optimizer of one transformer that is one
    FL client (``repro_torch.launch.steps.make_pfels_train_step``). First
    one step of the reduced zamba2-2.7b in f32 on the card against the CPU
    route, at the CPU tests' tolerances. Then zamba2-2.7b at full width and
@@ -174,12 +183,23 @@ Phases, each printing one JSON line:
    within 1% of p; with ``--profile`` one more tau = 1 step profiled
    (device idle share) and its parts timed one by one; last ``clip_norm``
    at the gradient's flat size (2.9e9 f32 elements) against its plain
-   version, timed beside its bound and ``vector_norm``.
+   version, timed beside its bound and ``vector_norm``. The tau = 1
+   steps' peak (reset after the data are made) within 10% of the dry
+   run's prediction; the tau = 2 step's peak beside it. Then
+   granite-moe-3b-a800m's production step at full width (d_model 1536,
+   40 experts top-8 padded to 48, bf16) at the dry run's depth, 3 steps
+   at tau = 1 with the allocator's expandable segments: s/step, the
+   peak within 10% of the prediction, the step's share of the bf16
+   peak, one ``clip_norm`` launch a step, finite metrics and params, the
+   masks' density within 1% of p; and one step of the reduced
+   whisper-tiny and qwen2-vl-72b (with their stub audio frames and vision
+   prefix) on the card against the CPU.
 
 ``--time-ssd`` runs the device phase and then only times ``ssd_scan`` at
 the two serving prefills (bf16, warm and cold L2) and three warm
 zamba2-2.7b prefills plus one profiled, and prints no result line. It
-uses only what every tree of the port has: copy this script into a parent
+uses only what every tree of the port with ``launch/roofline.py`` and
+the kernels' ``work`` formulas has: copy this script into a parent
 commit's checkout (``git archive``) and run it there and here in turns,
 in one call, to compare the two.
 
@@ -196,16 +216,17 @@ kernels at the VGG-11 shapes (warm and cold L2; the gather in f32 and
 bf16 with a tensor and a number scale, beside ``index_select``, with the
 device kernels of one call), runs the ``kernel_api`` chain three times,
 and prints no result line. Like ``--time-ssd`` it uses only what every
-tree of the port has, for the same turns with a parent commit.
+tree of the port with the kernels' ``work`` formulas has, for the same
+turns with a parent commit.
 
 Then the kernel summary line (the flash row with its times at every
 timed shape under ``by_shape``; the serving kernels' launches summed over
 the serve runs, each run's under ``launches_by_path``; the PFELS pair's
 main-path launches beside the sharded phase's, summed over the ranks,
 under ``launches_by_path``, and its per-shard times under ``per_shard``;
-``clip_norm``'s multi-pod launches), the whole run's
-seconds, the ``nvidia-smi`` name and power limit, and last ``{"ok":
-true, "device": {...}}``. Any failure raises and the
+``clip_norm``'s multi-pod and granite-moe-3b-a800m step's launches), the
+whole run's seconds, the ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure raises and the
 exit code is non-zero; without a CUDA device it exits 2 and prints no
 result.
 """
@@ -222,12 +243,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM data sheet: HBM3 rate, f32 (non-tensor-core) and dense bf16
-# tensor-core peaks
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the H100's constants, one copy with the dry run's (this import fails
+# outside a checkout of the repository)
+from repro_torch.launch.roofline import (  # noqa: E402
+    PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S)
 
 MAIN_R, MAIN_D = 32, 9_222_858
 # the sharded phase's world: gloo ranks sharing the one card
@@ -423,10 +443,8 @@ def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3,
 
     summary = {}
     if timed:
-        f32 = 4
-        b_sumsq, op_sumsq = (r * d + r) * f32, 2.0 * r * d
-        b_comb = (r * d + 3 * d + r * m_ant + 2 * r + 1) * f32
-        op_comb = 6.0 * r * d
+        b_sumsq, op_sumsq = kernel.sumsq_work(r, d)
+        b_comb, op_comb = kernel.combine_work(r, d, m_ant)
         sumsq_bound, sumsq_by = bound_ms(b_sumsq, op_sumsq)
         comb_bound, comb_by = bound_ms(b_comb, op_comb)
         times = {
@@ -567,19 +585,6 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed, misaligned=False):
     return x, dt, a, bm, cm
 
 
-def ssd_work(b, s, h, p, n, chunk, elem):
-    """Bytes (each input read once, each output written once) and FLOPs
-    of the scan: C B^T once per chunk (causal half), and per head the
-    intra-chunk product (causal half), the carried-in term and the state
-    update."""
-    n_bytes = (b * s * h * p * elem + b * s * h * 4 + h * 4
-               + 2 * b * s * n * elem + b * s * h * p * 4 + b * h * p * n * 4)
-    nc = s // chunk
-    tri = chunk * (chunk + 1) / 2
-    flops = b * nc * (2 * tri * n + h * (2 * tri * p + 4 * chunk * p * n))
-    return n_bytes, flops
-
-
 def _ssd_ratio(err, limit):
     return float((err / limit).max())
 
@@ -649,7 +654,7 @@ def check_ssd_at(shape, dtype_name, seed, timed, misaligned=False):
                             f"version")
     summary = None
     if timed:
-        n_bytes, flops = ssd_work(b, s, h, p, n, chunk, dtype.itemsize)
+        n_bytes, flops = kernel.work(b, s, h, p, n, chunk, dtype.itemsize)
         peak = (PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16
                 else PEAK_F32_FLOP_PER_S)
         bound, by = bound_ms(n_bytes, flops, peak)
@@ -697,21 +702,6 @@ def check_ssd_kernels():
     summary = check_ssd_at(SSD_ZAMBA2, "bfloat16", seed=11, timed=True)
     check_ssd_at(SSD_MAMBA2, "bfloat16", seed=12, timed=True)
     return summary
-
-
-def flash_work(b, sq, skv, h, hkv, dh, window, elem, causal=True):
-    """Bytes (q, k, v read once, the output written once) and FLOPs of
-    the product: the (query, key) pairs the mask keeps (every pair with
-    ``causal=False`` and no window), a multiply-add over Dh for the
-    scores and one for the values each."""
-    off = skv - sq
-    pairs = 0
-    for i in range(sq):
-        hi = i + off + 1 if causal else skv
-        lo = 0 if window is None else max(0, i + off - window + 1)
-        pairs += max(0, hi - lo)
-    n_bytes = (2 * b * sq * h * dh + 2 * b * skv * hkv * dh) * elem
-    return n_bytes, 4.0 * b * h * dh * pairs
 
 
 def _plain_attention_by_row(q, k, v, window, causal=True):
@@ -794,8 +784,8 @@ def check_flash_at(shape, dtype_name, seed, timed, emulate=False,
         del emu, emu_limit, emu_err
     summary = None
     if timed:
-        n_bytes, flops = flash_work(b, sq, skv, h, hkv, dh, window,
-                                    dtype.itemsize, causal)
+        n_bytes, flops = kernel.work(b, sq, skv, h, hkv, dh, window,
+                                     dtype.itemsize, causal)
         peak = (PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16
                 else PEAK_F32_FLOP_PER_S)
         bound, by = bound_ms(n_bytes, flops, peak)
@@ -980,14 +970,14 @@ def check_clip_at(rows, dtype_name, seed, timed, misaligned=False):
     summary = None
     if timed:
         n, elem = x.numel(), x.element_size()
-        bound, by = bound_ms(2 * n * elem + 4, 3.0 * n)
+        bound, by = bound_ms(*kernel.work(n, elem))
         fns = {"kernel": lambda: kernel.clip_norm(x, clip),
                "plain": lambda: ref.clip_norm_ref(x, clip),
                "library_first_pass": lambda: torch.linalg.vector_norm(x)}
         times = {k: time_ms(f) for k, f in fns.items()}
         line.update({"times_ms": times,
                      "cold_ms": {k: cold_ms(f) for k, f in fns.items()},
-                     "bytes": 2 * n * elem + 4,
+                     "bytes": kernel.work(n, elem)[0],
                      "device_kernels_per_call": device_kernels(
                          fns["kernel"]),
                      "library": "torch.linalg.vector_norm: the first pass "
@@ -1060,8 +1050,8 @@ def check_gather_at(rows, k_rows, dtype_name, seed, timed,
     summary = None
     if timed:
         elem = delta.element_size()
-        n_bytes = 2 * k_rows * 128 * elem + 4 * k_rows + elem
-        bound, by = bound_ms(n_bytes, 1.0 * k_rows * 128)
+        n_bytes, flops = kernel.work(k_rows, elem)
+        bound, by = bound_ms(n_bytes, flops)
         fns = {"kernel": lambda: kernel.randk_gather(delta, idx, t_scale),
                "kernel_number_scale": lambda: kernel.randk_gather(
                    delta, idx, GATHER_SCALE),
@@ -1213,8 +1203,8 @@ def check_combine_at(rows, k_rows, dtype_name, seed, timed,
     summary = None
     if timed:
         elem = theta.element_size()
-        n_bytes = 3 * k_rows * 128 * elem + 4 * k_rows + elem
-        bound, by = bound_ms(n_bytes, 2.0 * k_rows * 128)
+        n_bytes, flops = kernel.work(k_rows, elem)
+        bound, by = bound_ms(n_bytes, flops)
         work = theta.clone()
         idx_long = idx.long()
         fns = {"kernel": lambda: kernel.aircomp_combine(work, y, idx, inv),
@@ -1394,8 +1384,9 @@ def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
     """Three full-width prefills of ``arch`` (the serve phase's shapes)
     on the host clock, then one more prefill and ``steps`` decode steps,
     each under the profiler (no decode steps with ``steps=0``). Returns
-    the prefill's profile line and the three prefills' seconds: unlike
-    ``serve``'s first prefill, these run warm."""
+    the prefill's profile line, the three prefills' seconds (unlike
+    ``serve``'s first prefill, these run warm) and the first one's peak
+    memory (reset after the params and tokens are made)."""
     import torch
     from repro_torch import prng
     from repro_torch.configs import get_config
@@ -1418,12 +1409,16 @@ def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
             tok = torch.argmax(logits, dim=-1)
 
     warm = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_prefill()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+        if len(warm) == 1:  # later ones run beside the last one's outputs
+            peak = torch.cuda.max_memory_allocated()
     pre = profile_call(f"{arch} prefill, batch {batch}, prompt "
                        f"{prompt_len}", run_prefill)
     if steps:
@@ -1431,7 +1426,7 @@ def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
                      run_decode)
     del params, box
     torch.cuda.empty_cache()
-    return pre, warm
+    return pre, warm, peak
 
 
 def phase_main_path(profile: bool):
@@ -3127,12 +3122,14 @@ def prefill_split(pre):
     return line
 
 
-def phase_serve(profile: bool):
+def phase_serve(profile: bool, predicted: dict):
     """The serving main paths through ``serve``, the entry point a user
     calls, at full width: greedy, then (where the run asks) sampled from
     the same params; the launch counters are zeroed just before each call
     and read just after, and each model is freed before the next. Then
-    one more zamba2-2.7b prefill under the profiler (and, with
+    three warm zamba2-2.7b prefills, the first one's peak memory beside
+    ``predicted`` (the dry run's record of that prefill; printed, not
+    held), and one more prefill under the profiler (and, with
     ``profile``, 8 decode steps). Returns the launches of every call,
     summed by kernel, and by run."""
     import torch
@@ -3204,12 +3201,15 @@ def phase_serve(profile: bool):
     # first prefill also pays first-call costs), then one under the
     # profiler: the flash kernel's device time and its share of the
     # prefill's device time
-    pre, warm = profile_serve("zamba2-2.7b", 8, 2048,
-                              steps=8 if profile else 0)
+    pre, warm, peak = profile_serve("zamba2-2.7b", 8, 2048,
+                                    steps=8 if profile else 0)
+    pred_peak = predicted["memory"]["peak_bytes_per_device"]
     emit({"phase": "serve", "arch": "zamba2-2.7b",
           "what": "three warm prefills, then one profiled (batch 8, "
                   "prompt 2048)",
-          "prefill_warm_s": warm, **prefill_split(pre)})
+          "prefill_warm_s": warm, "prefill_peak_memory_bytes": peak,
+          "predicted_prefill_peak_bytes": pred_peak,
+          "peak_over_prediction": peak / pred_peak, **prefill_split(pre)})
     if failures:
         raise AssertionError("; ".join(failures))
     return total, by_run
@@ -3228,6 +3228,19 @@ LLM_TRAIN_BATCH, LLM_TRAIN_SEQ = 8, 512
 LLM_METRIC_RTOL, LLM_THETA_OF_UPDATE = 1e-5, 1e-4
 # the masks' density: Bernoulli(p) over 2.9e9 coordinates, within 1% of p
 LLM_MASK_DENSITY_TOL = 0.01
+# a step's measured peak against the dry run's prediction: within 10% (the
+# prediction counts the storages the step's ops create on the meta device,
+# rounded to the allocator's 512-byte blocks; it does not see what a
+# library allocates inside one op, cuBLAS's workspace, or the allocator
+# handing out a cached block up to 1 MiB larger than asked)
+DRYRUN_PEAK_TOL = 0.10
+# granite-moe-3b-a800m's production step on the card: full width, at the
+# deepest cut of its 32 layers whose predicted peak is at most this
+GRANITE_ARCH = "granite-moe-3b-a800m"
+GRANITE_LIMIT_BYTES = 70e9
+GRANITE_STEPS = 3
+# the reduced families' steps on the card against the CPU
+LLM_PARITY_ARCHS = ("whisper-tiny", "qwen2-vl-72b")
 
 
 def _pfels_llm_config(d, tau, n_clients=1):
@@ -3246,11 +3259,27 @@ def _lm_batch(data, key, batch):
     return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
 
 
+def _stub_embeds(cfg, batch):
+    """The VLM's vision prefix or Whisper's audio frames of a train
+    batch, 0.02 N(0, 1) drawn on the CPU from a seed (the stub inputs of
+    the serving path); none for the other families."""
+    from repro_torch import prng
+    out = {}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = 0.02 * prng.normal(
+            prng.PRNGKey(4, "cpu"), (batch, cfg.vision_prefix, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        out["audio_embeds"] = 0.02 * prng.normal(
+            prng.PRNGKey(5, "cpu"), (batch, cfg.encoder_seq, cfg.d_model))
+    return out
+
+
 def llm_train_parity(arch="zamba2-2.7b", n_clients=1, phase="llm_train"):
     """One production step of the reduced ``arch`` in f32 on the card
     (the clip kernel) against the CPU route (its plain version), from the
-    same params, batch and key; with ``n_clients`` > 1 the multi-pod step
-    from the params copied to each client."""
+    same params, batch and key (with the VLM's vision prefix or Whisper's
+    audio frames); with ``n_clients`` > 1 the multi-pod step from the
+    params copied to each client."""
     import dataclasses
 
     import numpy as np
@@ -3271,7 +3300,8 @@ def llm_train_parity(arch="zamba2-2.7b", n_clients=1, phase="llm_train"):
         params = clientize_params(params, n_clients)
     data = make_lm_sequences(prng.PRNGKey(1, "cpu"), n_seqs=16, seq_len=65,
                              vocab=cfg.vocab_size)
-    batch = _lm_batch(data, prng.PRNGKey(2, "cpu"), 8)
+    batch = dict(_lm_batch(data, prng.PRNGKey(2, "cpu"), 8),
+                 **_stub_embeds(cfg, 8))
     step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1, n_clients), d,
                                  n_clients=n_clients)
     out = {}
@@ -3442,8 +3472,8 @@ def check_clip_flat(n, seed):
            "plain": lambda: ref.clip_norm_ref(x, clip),
            "library_first_pass": lambda: torch.linalg.vector_norm(x)}
     times = {k: time_ms(f, reps=10, warmup=2) for k, f in fns.items()}
-    n_bytes = 2 * n * 4 + 4
-    bound, by = bound_ms(n_bytes, 3.0 * n)
+    n_bytes, flops = kernel.work(n, 4)
+    bound, by = bound_ms(n_bytes, flops)
     line = {"phase": "kernels", "kernel": "clip_norm",
             "shape": {"R": n // 128, "lanes": 128, "elements": n},
             "dtype": "float32", "what": "zamba2-2.7b's flat gradient",
@@ -3468,17 +3498,28 @@ def check_clip_flat(n, seed):
             "elements": n}
 
 
-def phase_llm_train(profile: bool):
+def _check_peak(peak, predicted, what):
+    """A failure message unless the measured peak is within
+    ``DRYRUN_PEAK_TOL`` of the dry run's prediction."""
+    if abs(peak - predicted) <= DRYRUN_PEAK_TOL * predicted:
+        return []
+    return [f"{what}: peak {peak} bytes, predicted {predicted} (limit "
+            f"{DRYRUN_PEAK_TOL:.0%})"]
+
+
+def phase_llm_train(profile: bool, predicted: dict):
     """PFELS as the optimizer of zamba2-2.7b at full width and depth
     (bf16, random weights from seed 0; the example's settings, batch 8 x
     512 tokens drawn by ``make_lm_sequences`` on the card): 3 steps at
     tau = 1 and 1 at tau = 2, timed; the clip_norm launches (zeroed just
     before, read just after) must equal the sum of tau; the metrics finite
-    and the masks' density within 1% of p. With ``profile``, one more
-    tau = 1 step profiled and its parts timed one by one. First the
-    reduced config's step against the CPU; last the clip kernel at the
-    gradient's flat size. Returns (clip_norm launches, the kernel's
-    summary entry)."""
+    and the masks' density within 1% of p; the tau = 1 steps' peak (reset
+    after the data are made) within ``DRYRUN_PEAK_TOL`` of ``predicted``,
+    the dry run's record of that step, and the tau = 2 step's own peak
+    beside it. With ``profile``, one more tau = 1 step profiled and its
+    parts timed one by one. First the reduced config's step against the
+    CPU; last the clip kernel at the gradient's flat size. Returns
+    (clip_norm launches, the kernel's summary entry)."""
     import torch
     from repro_torch import prng
     from repro_torch.configs import get_config
@@ -3492,7 +3533,6 @@ def phase_llm_train(profile: bool):
     t_phase = time.perf_counter()
     llm_train_parity()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     cfg = get_config("zamba2-2.7b")
     key = prng.PRNGKey(0)
     t0 = time.perf_counter()
@@ -3508,16 +3548,23 @@ def phase_llm_train(profile: bool):
     keys = [prng.fold_in(key, i) for i in range(len(LLM_TRAIN_TAUS))]
     batches = [_lm_batch(data, k, LLM_TRAIN_BATCH) for k in keys]
     torch.cuda.synchronize()
+    # the steps' own peaks: make_lm_sequences' (vocab, vocab) f32 logits
+    # and the init's temporaries are freed by now
+    torch.cuda.reset_peak_memory_stats()
     clip_kernel.reset_launch_counts()
-    secs, metrics = [], []
+    secs, metrics, peaks = [], [], {}
     for tau, batch, k in zip(LLM_TRAIN_TAUS, batches, keys):
+        if tau != 1 and 1 not in peaks:
+            peaks[1] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, m = steps[tau](params, batch, k)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         metrics.append({n: float(v) for n, v in m.items()})
     launches = clip_kernel.LAUNCHES["clip_norm"]
-    peak = torch.cuda.max_memory_allocated()
+    peaks[max(LLM_TRAIN_TAUS)] = torch.cuda.max_memory_allocated()
+    pred_peak = predicted["memory"]["peak_bytes_per_device"]
     finite_params = all(bool(torch.isfinite(x).all())
                         for x in tree_leaves(params))
     finite = all(math.isfinite(m[n]) for m in metrics
@@ -3535,7 +3582,15 @@ def phase_llm_train(profile: bool):
             "seq": LLM_TRAIN_SEQ, "taus": list(LLM_TRAIN_TAUS),
             "compression_ratio": pfels[1].compression_ratio,
             "setup_s": setup_s, "s_per_step": secs,
-            "peak_memory_bytes": peak,
+            "peak_memory_bytes_tau1_steps": peaks[1],
+            "predicted_peak_bytes_tau1": pred_peak,
+            "peak_over_prediction": peaks[1] / pred_peak,
+            "peak_tolerance": f"{DRYRUN_PEAK_TOL:.0%} of the prediction",
+            "peak_memory_bytes_tau2_step": peaks[2],
+            "step_share_of_bf16_peak": [
+                predicted["model_flops_per_device"]
+                / (t * PEAK_BF16_FLOP_PER_S)
+                for t, tau in zip(secs, LLM_TRAIN_TAUS) if tau == 1],
             "launches": {"clip_norm": launches},
             "launches_expected": {"clip_norm": sum(LLM_TRAIN_TAUS)},
             "metrics": metrics, "finite_metrics": finite,
@@ -3551,6 +3606,7 @@ def phase_llm_train(profile: bool):
     p = pfels[1].compression_ratio
     if not abs(density - p) <= LLM_MASK_DENSITY_TOL * p:
         failures.append(f"mask density {density}, p {p}")
+    failures += _check_peak(peaks[1], pred_peak, "zamba2-2.7b tau = 1 steps")
     if failures:
         raise AssertionError("; ".join(failures))
     if profile:
@@ -3613,6 +3669,245 @@ def profile_llm_step(cfg, params, pfels, step, batch, k, d, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ the dry run
+
+def _dryrun_job(job):
+    """One prediction in a worker process: ``job`` = (label, arch, kind,
+    seq, batch, depth or None) -> ``launch.dryrun.dryrun_one``'s record
+    of the step on the meta device, on a one-device mesh (the train step
+    with ``_pfels_llm_config``'s settings at tau = 1)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.models import transformer as T
+    label, arch, kind, seq, batch, depth = job
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cut_depth(cfg, depth)
+    pfels = None
+    if kind == "train":
+        pfels = _pfels_llm_config(T.param_count(T.init_shapes(cfg)), 1)
+    return dryrun.dryrun_one(arch, InputShape(label, seq, batch, kind),
+                             mesh=make_host_mesh((1, 1)), cfg=cfg,
+                             pfels=pfels, verbose=False)
+
+
+def _prediction(predicts, rec, **extra):
+    line = {"phase": "dryrun", "predicts": predicts, "arch": rec["arch"],
+            "kind": rec["step_kind"], "n_layers": rec["n_layers"],
+            "batch": rec["global_batch"], "seq": rec["seq_len"],
+            "d": rec["n_params"], "device": rec["device"],
+            "peak_bytes": rec["memory"]["peak_bytes_per_device"],
+            "argument_bytes": rec["memory"]["argument_bytes_one_device"],
+            "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"],
+            "model_flops": rec["model_flops_per_device"],
+            "useful_flops_ratio": rec["useful_flops_ratio"],
+            "t_compute_s": rec["roofline"]["t_compute_s"],
+            "t_memory_s": rec["roofline"]["t_memory_s"],
+            "dominant": rec["roofline"]["dominant"], "ops": rec["ops"],
+            "build_s": rec["build_s"], "kernels": rec["kernels"]}
+    line.update(extra)
+    emit(line)
+
+
+def phase_dryrun():
+    """Predictions of the runs below, before they run, by
+    ``repro_torch.launch.dryrun.dryrun_one`` on the meta device with a
+    one-device mesh, in parallel worker processes: zamba2-2.7b's
+    production step at 8 x 512 and tau = 1 (``llm_train``), its serve
+    prefill at 8 x 2048 (``serve``), and granite-moe-3b-a800m's step at
+    8 x 512, tau = 1, at every depth from its full 32 layers down until
+    one is predicted to peak at no more than ``GRANITE_LIMIT_BYTES``: the
+    deepest such is the depth its card run takes. Returns the three
+    records."""
+    import multiprocessing
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    n_workers = max(3, min(8, os.cpu_count() or 3))
+    fixed = [("llm_train", "zamba2-2.7b", "train", LLM_TRAIN_SEQ,
+              LLM_TRAIN_BATCH, None),
+             ("serve_prefill", "zamba2-2.7b", "prefill", 2048, 8, None)]
+    full = get_config(GRANITE_ARCH).n_layers
+    depths = list(range(full, 0, -1))
+    searched, chosen = {}, None
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(n_workers) as pool:
+        pending = [pool.apply_async(_dryrun_job, (j,)) for j in fixed]
+        width = n_workers - len(fixed)
+        while chosen is None and depths:
+            batch, depths = depths[:width], depths[width:]
+            recs = pool.map(_dryrun_job, [
+                ("granite_train", GRANITE_ARCH, "train", LLM_TRAIN_SEQ,
+                 LLM_TRAIN_BATCH, n) for n in batch])
+            searched.update(zip(batch, recs))
+            fits = [n for n in batch if searched[n]["memory"][
+                "peak_bytes_per_device"] <= GRANITE_LIMIT_BYTES]
+            chosen = max(fits) if fits else None
+            width = n_workers
+        zamba_train, zamba_prefill = (p.get() for p in pending)
+    if chosen is None:
+        raise AssertionError(f"no depth of {GRANITE_ARCH} is predicted to "
+                             f"fit {GRANITE_LIMIT_BYTES} bytes")
+    _prediction("llm_train: zamba2-2.7b production step, tau 1",
+                zamba_train)
+    _prediction("serve: zamba2-2.7b prefill", zamba_prefill)
+    _prediction(f"llm_train: {GRANITE_ARCH} production step, tau 1, at "
+                f"{chosen} of {full} layers", searched[chosen],
+                limit_bytes=GRANITE_LIMIT_BYTES, full_n_layers=full,
+                peak_bytes_by_n_layers={
+                    n: r["memory"]["peak_bytes_per_device"]
+                    for n, r in sorted(searched.items())},
+                deeper_predicted_above_limit=all(
+                    searched[n]["memory"]["peak_bytes_per_device"]
+                    > GRANITE_LIMIT_BYTES for n in searched if n > chosen))
+    emit({"phase": "dryrun", "workers": n_workers,
+          "seconds": time.perf_counter() - t0})
+    return {"llm_train": zamba_train, "serve_prefill": zamba_prefill,
+            "granite_train": searched[chosen]}
+
+
+def _expandable_segments(on: bool) -> None:
+    """The caching allocator's expandable segments, on or off for the
+    segments it makes from now on."""
+    import torch
+    setting = f"expandable_segments:{on}"
+    fn = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    if fn is not None:
+        fn(setting)
+    else:
+        torch.cuda.memory._set_allocator_settings(setting)
+
+
+def phase_llm_train_families(predicted: dict):
+    """granite-moe-3b-a800m's production step on the card
+    (``make_pfels_train_step``): full width (d_model 1536, 40 experts
+    top-8 padded to 48, bf16, random weights from seed 0) at the depth
+    the dry run chose, the example's settings, batch 8 x 512 tokens drawn
+    by ``make_lm_sequences``, ``GRANITE_STEPS`` steps at tau = 1: s/step,
+    the steps' peak (reset after the data are made) within
+    ``DRYRUN_PEAK_TOL`` of the prediction, the step's share of the bf16
+    peak (the prediction's model FLOPs over s/step x 989 TFLOP/s), the
+    ``clip_norm`` launches (zeroed just before, read just after: one a
+    step), finite metrics and params, and the masks' density within 1%
+    of p. The steps run with the allocator's expandable segments (from an
+    empty cache): without them, on an NVIDIA H100 80GB HBM3 at 700 W, the
+    aggregate's per-leaf f64 temporaries of the 1.1e9-element expert
+    tensors left 19.7 GiB reserved but free in pieces, and an 8.2 GiB
+    block found no room below the predicted peak. Then one step of the reduced whisper-tiny and qwen2-vl-72b on
+    the card against the CPU. Returns the granite steps' launches."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _expandable_segments(True)
+    try:
+        launches = _granite_steps(predicted)
+    finally:
+        torch.cuda.empty_cache()
+        _expandable_segments(False)
+    for arch in LLM_PARITY_ARCHS:
+        llm_train_parity(arch)
+    emit({"phase": "llm_train", "part": "families",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def _granite_steps(predicted: dict) -> int:
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import randk
+    from repro_torch.data import make_lm_sequences
+    from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.launch.steps import make_pfels_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(GRANITE_ARCH)
+    cfg = cut_depth(full, predicted["n_layers"])
+    key = prng.PRNGKey(0)
+    t0 = time.perf_counter()
+    params = T.init_params(key, cfg)
+    d = T.param_count(params)
+    data = make_lm_sequences(prng.PRNGKey(1), n_seqs=2 * LLM_TRAIN_BATCH,
+                             seq_len=LLM_TRAIN_SEQ + 1, vocab=cfg.vocab_size)
+    pfels = _pfels_llm_config(d, 1)
+    step = make_pfels_train_step(cfg, pfels, d)
+    keys = [prng.fold_in(key, i) for i in range(GRANITE_STEPS)]
+    batches = [_lm_batch(data, k, LLM_TRAIN_BATCH) for k in keys]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    clip_kernel.reset_launch_counts()
+    secs, metrics = [], []
+    for batch, k in zip(batches, keys):
+        t0 = time.perf_counter()
+        params, m = step(params, batch, k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({n: float(v) for n, v in m.items()})
+    launches = clip_kernel.LAUNCHES["clip_norm"]
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    finite_params = all(bool(torch.isfinite(x).all())
+                        for x in tree_leaves(params))
+    finite = all(math.isfinite(m[n]) for m in metrics
+                 for n in ("loss", "grad_norm", "beta", "energy"))
+    _, km, _ = prng.split(keys[-1], 3)
+    masks = randk.mask_tree(km, params, pfels.compression_ratio)
+    density = float(sum(torch.count_nonzero(m) for m in
+                        tree_leaves(masks))) / d
+    del masks
+    pred_peak = predicted["memory"]["peak_bytes_per_device"]
+    s_step = statistics.median(secs)
+    emit({"phase": "llm_train", "part": "full width", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+          "cut": f"{cfg.n_layers} of {full.n_layers} layers, every width "
+                 f"kept (the deepest the dry run predicts at most "
+                 f"{GRANITE_LIMIT_BYTES:.0f} bytes)",
+          "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+          "experts_padded": cfg.moe.experts_padded(1),
+          "top_k": cfg.moe.top_k, "dtype": cfg.dtype, "d": d,
+          "batch": LLM_TRAIN_BATCH, "seq": LLM_TRAIN_SEQ, "tau": 1,
+          "compression_ratio": pfels.compression_ratio,
+          "setup_s": setup_s, "s_per_step": secs,
+          "peak_memory_bytes": peak, "predicted_peak_bytes": pred_peak,
+          "peak_over_prediction": peak / pred_peak,
+          "peak_reserved_bytes": peak_reserved,
+          "allocator": "expandable segments",
+          "peak_tolerance": f"{DRYRUN_PEAK_TOL:.0%} of the prediction",
+          "model_flops_per_step": predicted["model_flops_per_device"],
+          "step_share_of_bf16_peak":
+              predicted["model_flops_per_device"]
+              / (s_step * PEAK_BF16_FLOP_PER_S),
+          "launches": {"clip_norm": launches},
+          "launches_expected": {"clip_norm": GRANITE_STEPS},
+          "metrics": metrics, "finite_metrics": finite,
+          "finite_params": finite_params, "mask_density": density,
+          "nvidia_smi": nvidia_smi()})
+    del params, data, batches
+    torch.cuda.empty_cache()
+    failures = []
+    if launches != GRANITE_STEPS:
+        failures.append(f"{GRANITE_ARCH}: clip_norm launched {launches} "
+                        f"times, expected {GRANITE_STEPS}")
+    if not (finite and finite_params):
+        failures.append(f"{GRANITE_ARCH}: non-finite metrics or params")
+    p = pfels.compression_ratio
+    if not abs(density - p) <= LLM_MASK_DENSITY_TOL * p:
+        failures.append(f"{GRANITE_ARCH}: mask density {density}, p {p}")
+    failures += _check_peak(peak, pred_peak, f"{GRANITE_ARCH} steps")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def phase_ssd_timing():
     """``--time-ssd``: the scan alone at the two serving prefills (bf16,
     warm and cold L2), then three warm zamba2-2.7b prefills and one
@@ -3635,7 +3930,7 @@ def phase_ssd_timing():
                       "cold_ms": cold_ms(run)}
         del args
         torch.cuda.empty_cache()
-    pre, warm = profile_serve("zamba2-2.7b", 8, 2048, steps=0)
+    pre, warm, _ = profile_serve("zamba2-2.7b", 8, 2048, steps=0)
     line["zamba2_prefill"] = {"warm_s": warm, **prefill_split(pre)}
     emit(line)
 
@@ -3685,8 +3980,7 @@ def phase_row_timing():
             "tensor_scale": cold_ms(fns["tensor_scale"], read=True),
             "copy_same_bytes": cold_ms(lambda: dst.copy_(src), read=True)}
         del src, dst
-        entry["bound_ms"] = bound_ms(2 * k_rows * 128 * elem + 4 * k_rows
-                                     + elem, 1.0 * k_rows * 128)[0]
+        entry["bound_ms"] = bound_ms(*gather.work(k_rows, elem))[0]
         entry["device_kernels_per_call"] = {
             k: device_kernels(fns[k]) for k in ("tensor_scale",
                                                 "number_scale")}
@@ -3733,8 +4027,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi = phase_device()
     if args.time_ssd:
@@ -3755,6 +4047,7 @@ def main(argv=None) -> int:
         phase_sharded(main_info, yardstick=True)
         print(smi, flush=True)
         return 0
+    predicted = phase_dryrun()
     summary = phase_kernels()
     launches, main_info = phase_main_path(args.profile)
     launches.update(phase_kernel_api())
@@ -3771,7 +4064,8 @@ def main(argv=None) -> int:
     phase_streamed()
     phase_train_cli()
     phase_serve_parity()
-    serve_launches, serve_by_run = phase_serve(args.profile)
+    serve_launches, serve_by_run = phase_serve(args.profile,
+                                               predicted["serve_prefill"])
     launches.update(serve_launches)
     for name in serve_launches:
         summary[name]["launches_by_path"] = {
@@ -3782,9 +4076,11 @@ def main(argv=None) -> int:
     # chain's (kept beside them)
     api_launches, at_vgg11 = launches["clip_norm"], summary["clip_norm"]
     launches["clip_norm"], summary["clip_norm"] = phase_llm_train(
-        args.profile)
+        args.profile, predicted["llm_train"])
+    granite_launches = phase_llm_train_families(predicted["granite_train"])
     summary["clip_norm"].update({"launches_kernel_api": api_launches,
                                  "launches_multi_pod": multi_pod_launches,
+                                 "launches_granite_step": granite_launches,
                                  "at_vgg11_rows": at_vgg11})
     for name, by_path in sharded_launches.items():
         summary[name]["launches_by_path"] = {

@@ -17,6 +17,7 @@ from repro_torch.core import channel as chan
 from repro_torch.core.clipping import row_norms
 from repro_torch.core.compressors import base as comp_base
 from repro_torch.kernels.pfels_transmit import ref as transmit_ref
+from repro_torch.launch import op_cost
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -196,5 +197,7 @@ def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
         else:
             summed = (x * mf) * beta
             dist.all_reduce(summed, group=group)
+            op_cost.charge_collective("all-reduce", summed.nbytes,
+                                      dist.get_world_size(group))
             out.append((summed + (sigma0 * mf) * z) * scale)
     return tree_unflatten(update_tree, out)

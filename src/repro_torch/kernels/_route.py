@@ -8,19 +8,20 @@ import struct
 import torch
 
 
-def on_cpu(*tensors) -> bool:
-    """True for CPU tensors (the plain version runs), False for CUDA ones
-    (the kernel launches); raises for mixed or other devices."""
+def route(*tensors) -> str:
+    """The route of a kernel wrapper, from its tensors' one device:
+    ``"cpu"`` (the plain version runs), ``"cuda"`` (the kernel launches)
+    or ``"meta"`` (shapes only: the wrapper returns its kernel's outputs
+    as meta tensors and charges the active ``launch.op_cost`` counter with
+    the kernel's work). Raises for mixed or other devices."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = next(iter(devices))
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    return False
+    return dev.type
 
 
 def scalar_like(value, t: torch.Tensor) -> torch.Tensor:

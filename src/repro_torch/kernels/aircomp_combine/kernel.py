@@ -5,7 +5,9 @@ kernel ``aircomp_combine`` of ``repro/kernels/aircomp_combine/kernel.py``.
 The TPU kernel aliases theta from input to output; this wrapper updates
 ``theta_rows`` in place, on either route, and returns it. The tensor's
 device is the route: a CPU tensor runs the plain update
-(``ref.add_rows_``); a CUDA tensor launches the kernel or raises. The
+(``ref.add_rows_``); a CUDA tensor launches the kernel or raises; a
+``meta`` tensor is returned as it is, and the active ``launch.op_cost``
+counter is charged with ``work`` (the CUDA launch charges it too). The
 wrapper checks dtypes (theta and y f32 or bf16 alike, indices int32),
 shapes and contiguity. 1/(r beta) reaches the kernel cast to y's dtype,
 as the TPU kernel casts it (``_route.scalar_arg``): a number is rounded
@@ -32,8 +34,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import current_stream, on_cpu, scalar_arg
+from repro_torch.kernels._route import current_stream, route, scalar_arg
 from repro_torch.kernels.aircomp_combine import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "aircomp_combine"
 LANES = 128
@@ -48,6 +51,15 @@ _LL = ctypes.c_longlong
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def work(k_rows: int, elem: int):
+    """(bytes, FLOPs) of one combine of k_rows rows of 128 lanes of
+    ``elem`` bytes: the theta rows read and written and the y rows read
+    once, the int32 indices and the scale read; a multiply-add an
+    element."""
+    return (3 * k_rows * LANES * elem + 4 * k_rows + elem,
+            2.0 * k_rows * LANES)
 
 
 def _lib() -> ctypes.CDLL:
@@ -78,7 +90,8 @@ def aircomp_combine(theta_rows: torch.Tensor, y_rows: torch.Tensor,
     theta's dtype; idx_rows: (k_rows,) int32; inv_rbeta: 1/(r beta), a
     number or a one-element tensor. Returns theta_rows."""
     check_shapes(theta_rows, y_rows, idx_rows)
-    if on_cpu(theta_rows, y_rows, idx_rows):
+    where = route(theta_rows, y_rows, idx_rows)
+    if where == "cpu":
         return ref.add_rows_(theta_rows, y_rows, idx_rows, inv_rbeta)
     if theta_rows.dtype not in DTYPES or y_rows.dtype != theta_rows.dtype:
         raise TypeError(f"theta_rows and y_rows must share a dtype of "
@@ -94,6 +107,10 @@ def aircomp_combine(theta_rows: torch.Tensor, y_rows: torch.Tensor,
     if rows < 1 or k_rows < 1:
         raise ValueError(f"empty operand: theta_rows "
                          f"{tuple(theta_rows.shape)}, k_rows {k_rows}")
+    n_work = work(k_rows, theta_rows.element_size())
+    if where == "meta":
+        op_cost.charge_kernel("aircomp_combine", *n_work)
+        return theta_rows
     inv, _, inv_val = scalar_arg(inv_rbeta, y_rows, "inv_rbeta")
     if theta_rows.get_device() == torch.cuda.current_device():
         err = _launch(theta_rows, y_rows, idx_rows, inv, inv_val)
@@ -103,6 +120,7 @@ def aircomp_combine(theta_rows: torch.Tensor, y_rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"aircomp_combine: CUDA error {err} at launch")
     LAUNCHES["aircomp_combine"] += 1
+    op_cost.charge_kernel("aircomp_combine", *n_work)
     return theta_rows
 
 

@@ -4,13 +4,15 @@ kernels of ``repro/kernels/clip_norm/kernel.py`` (``clip_norm``: the
 sum-of-squares pass, then the scale pass).
 
 The tensor's device is the route: a CPU tensor runs the plain version
-(``ref.clip_norm_ref``); a CUDA tensor launches the kernel or raises.
-The wrapper checks dtype (f32 or bf16), shape (R, 128) and contiguity,
-allocates the output and one scratch tensor (the norm, then one partial
-sum for each block of the resident grid), makes one cooperative launch on
-the current stream (switching the device only when the tensor's is not
-the current one), raises if the launch reports an error, and adds one to
-``LAUNCHES["clip_norm"]``.
+(``ref.clip_norm_ref``); a CUDA tensor launches the kernel or raises; a
+``meta`` tensor gets the kernel's outputs as meta tensors and charges the
+active ``launch.op_cost`` counter with ``work`` (the CUDA launch charges
+it too). The wrapper checks dtype (f32 or bf16), shape (R, 128) and
+contiguity, allocates the output and one scratch tensor (the norm, then
+one partial sum for each block of the resident grid), makes one
+cooperative launch on the current stream (switching the device only when
+the tensor's is not the current one), raises if the launch reports an
+error, and adds one to ``LAUNCHES["clip_norm"]``.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import current_stream, on_cpu
+from repro_torch.kernels._route import current_stream, route
 from repro_torch.kernels.clip_norm import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "clip_norm"
 LANES = 128
@@ -37,6 +40,13 @@ _SCRATCH_LEN: Dict[int, int] = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def work(n: int, elem: int):
+    """(bytes, FLOPs) of one clip of n elements of ``elem`` bytes: x read
+    once, the output written once, the f32 norm written; a square, an add
+    and a scale an element."""
+    return 2 * n * elem + 4, 3.0 * n
 
 
 def _lib() -> ctypes.CDLL:
@@ -68,6 +78,8 @@ def _launch(lib, x_rows: torch.Tensor, clip: float):
     if err != 0:
         raise RuntimeError(f"clip_norm: CUDA error {err} at launch")
     LAUNCHES["clip_norm"] += 1
+    op_cost.charge_kernel("clip_norm", *work(x_rows.numel(),
+                                             x_rows.element_size()))
     return out, scratch[0]
 
 
@@ -77,7 +89,8 @@ def clip_norm(x_rows: torch.Tensor, clip: float):
     if x_rows.ndim != 2 or x_rows.shape[1] != LANES:
         raise ValueError(f"x_rows must be (R, {LANES}), got "
                          f"{tuple(x_rows.shape)}")
-    if on_cpu(x_rows):
+    where = route(x_rows)
+    if where == "cpu":
         return ref.clip_norm_ref(x_rows, clip)
     if x_rows.dtype not in DTYPES:
         raise TypeError(f"x_rows must be float32 or bfloat16, got "
@@ -86,6 +99,11 @@ def clip_norm(x_rows: torch.Tensor, clip: float):
         raise ValueError("x_rows must be contiguous")
     if x_rows.numel() == 0:
         raise ValueError("x_rows is empty")
+    if where == "meta":
+        op_cost.charge_kernel("clip_norm", *work(x_rows.numel(),
+                                                 x_rows.element_size()))
+        return torch.empty_like(x_rows), x_rows.new_empty(
+            (), dtype=torch.float32)
     lib = _lib()
     if x_rows.get_device() == torch.cuda.current_device():
         return _launch(lib, x_rows, clip)

@@ -3,13 +3,15 @@
 ``flash_attention_fwd`` of ``repro/kernels/flash_attn/kernel.py``.
 
 The tensor's device is the route: a CPU tensor runs the plain version
-(``ref.attention_ref``); a CUDA tensor launches the kernel or raises. The
-dtype picks the kernel's design: bf16 runs on the tensor cores (wgmma,
-TMA loads; P is rounded to bf16 before P V), f32 on the CUDA cores. The
-wrapper checks device, dtypes, shapes, contiguity and (bf16: TMA) 16-byte
-alignment, allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and adds one to
-``LAUNCHES["flash_attention_fwd"]``.
+(``ref.attention_ref``); a CUDA tensor launches the kernel or raises; a
+``meta`` tensor gets the kernel's output as a meta tensor and charges the
+active ``launch.op_cost`` counter with ``work`` (the CUDA launch charges
+it too). The dtype picks the kernel's design: bf16 runs on the tensor
+cores (wgmma, TMA loads; P is rounded to bf16 before P V), f32 on the
+CUDA cores. The wrapper checks device, dtypes, shapes, contiguity and
+(bf16: TMA) 16-byte alignment, allocates the output with
+``torch.empty``, launches on the current stream, raises if the launch
+reports an error, and adds one to ``LAUNCHES["flash_attention_fwd"]``.
 
 Both routes refuse the inputs on which the TPU kernel and its oracle part
 ways: a query row with no key to attend to (causal with Sq > Skv, or a
@@ -22,11 +24,13 @@ import ctypes
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import on_cpu
+from repro_torch.kernels._route import route
 from repro_torch.kernels.flash_attn import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "flash_attn"
 HEAD_DIMS = (64, 80, 96, 128, 160)   # the Dh the kernel is built for
@@ -40,6 +44,27 @@ _I = ctypes.c_int
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def work(b, sq, skv, h, hkv, dh, window, elem, causal=True):
+    """(bytes, FLOPs) of one call: q, k and v read once, the output
+    written once; a multiply-add over Dh for the scores and one for the
+    values for each (query, key) pair the mask keeps (every pair with
+    ``causal=False`` and no window). Query row i sits at position
+    i + Skv - Sq."""
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = pos + 1 if causal else np.full_like(pos, skv)
+    lo = (np.zeros_like(pos) if window is None
+          else np.maximum(0, pos - window + 1))
+    pairs = int(np.maximum(0, hi - lo).sum())
+    n_bytes = (2 * b * sq * h * dh + 2 * b * skv * hkv * dh) * elem
+    return n_bytes, 4.0 * b * h * dh * pairs
+
+
+def _work_of(q, k, causal, window):
+    b, sq, h, dh = q.shape
+    return work(b, sq, k.shape[1], h, k.shape[2], dh, window,
+                q.element_size(), causal)
 
 
 def _lib() -> ctypes.CDLL:
@@ -80,7 +105,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. Query head h reads KV head h // (H / Hkv); query row i sits at
     position i + Skv - Sq."""
     check_shapes(q, k, v, causal, window)
-    if on_cpu(q, k, v):
+    where = route(q, k, v)
+    if where == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -93,10 +119,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if where == "meta":
+            continue
         if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if where == "meta":
+        op_cost.charge_kernel("flash_attention_fwd",
+                              *_work_of(q, k, causal, window))
         return out
     scale = 1.0 / math.sqrt(dh)
     with torch.cuda.device(q.device):
@@ -109,4 +141,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_fwd: CUDA error {err} at "
                            f"launch")
     LAUNCHES["flash_attention_fwd"] += 1
+    op_cost.charge_kernel("flash_attention_fwd",
+                          *_work_of(q, k, causal, window))
     return out

@@ -5,10 +5,12 @@ kernels ``client_sumsq`` and ``fused_combine`` of
 
 Each wrapper takes the tensor's device as the route: a CPU tensor runs
 the plain version (``ref.py``); a CUDA tensor launches the kernel or
-raises. It checks device, dtype (f32), shape and contiguity, allocates
-outputs and scratch with ``torch.empty``, launches on the current stream,
-raises if the launch reports an error, and adds one to its entry in
-``LAUNCHES``.
+raises; a ``meta`` tensor gets the kernel's outputs as meta tensors and
+charges the active ``launch.op_cost`` counter with the kernel's work
+(``sumsq_work``, ``combine_work``; the CUDA launch charges it too). It
+checks device, dtype (f32), shape and contiguity, allocates outputs and
+scratch with ``torch.empty``, launches on the current stream, raises if
+the launch reports an error, and adds one to its entry in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import on_cpu
+from repro_torch.kernels._route import route
 from repro_torch.kernels.pfels_transmit import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "pfels_transmit"
 # columns of one client_sumsq block (256 threads x 32 columns)
@@ -33,6 +36,20 @@ _P = ctypes.c_void_p
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def sumsq_work(r: int, d: int):
+    """(bytes, FLOPs) of ``client_sumsq`` on (r, d) f32: u read once,
+    the r sums written; a square and an add an element."""
+    return (r * d + r) * 4, 2.0 * r * d
+
+
+def combine_work(r: int, d: int, m_ant: int):
+    """(bytes, FLOPs) of ``fused_combine``: u, mask, z and the gains,
+    tx and txm read once, y and the energy written; per element of u a
+    mask, a scale, an add into y, and a square, a scale and an add into
+    the energy."""
+    return (r * d + 3 * d + r * m_ant + 2 * r + 1) * 4, 6.0 * r * d
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,12 +88,16 @@ def client_sumsq(u: torch.Tensor) -> torch.Tensor:
     """u: (r, d) f32 -> (r,) per-client sums of squares."""
     if u.ndim != 2:
         raise ValueError(f"u must be (r, d), got {tuple(u.shape)}")
-    if on_cpu(u):
+    where = route(u)
+    if where == "cpu":
         return ref.client_sumsq_ref(u)
     r, d = u.shape
     if r < 1 or d < 1:
         raise ValueError(f"empty update batch {tuple(u.shape)}")
     _check("u", u, (r, d))
+    if where == "meta":
+        op_cost.charge_kernel("client_sumsq", *sumsq_work(r, d))
+        return u.new_empty((r,))
     n_chunks = -(-d // SUMSQ_CHUNK)
     partial = torch.empty((r, n_chunks), dtype=torch.float32, device=u.device)
     out = torch.empty((r,), dtype=torch.float32, device=u.device)
@@ -87,6 +108,7 @@ def client_sumsq(u: torch.Tensor) -> torch.Tensor:
                                         stream)
     _raise_on(err, "client_sumsq")
     LAUNCHES["client_sumsq"] += 1
+    op_cost.charge_kernel("client_sumsq", *sumsq_work(r, d))
     return out
 
 
@@ -97,7 +119,8 @@ def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
     f32 -> (y (d,), energy ()). See ``ref.fused_combine_ref``."""
     if u.ndim != 2 or gains_mat.ndim != 2:
         raise ValueError("u and gains_mat must be 2-D")
-    if on_cpu(u, mask, z, gains_mat, tx, txm):
+    where = route(u, mask, z, gains_mat, tx, txm)
+    if where == "cpu":
         return ref.fused_combine_ref(u, mask, z, gains_mat, tx, txm)
     r, d = u.shape
     m_ant = gains_mat.shape[1]
@@ -109,6 +132,9 @@ def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
                                             (r, m_ant)),
                            ("tx", tx, (r,)), ("txm", txm, (r,))):
         _check(name, t, shape)
+    if where == "meta":
+        op_cost.charge_kernel("fused_combine", *combine_work(r, d, m_ant))
+        return u.new_empty((d,)), u.new_empty(())
     lib = _lib()
     n_blocks = -(-d // lib.pfels_combine_cols_per_block())
     y = torch.empty((d,), dtype=torch.float32, device=u.device)
@@ -123,4 +149,5 @@ def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
             e_partial.data_ptr(), energy.data_ptr(), r, d, stream)
     _raise_on(err, "fused_combine")
     LAUNCHES["fused_combine"] += 1
+    op_cost.charge_kernel("fused_combine", *combine_work(r, d, m_ant))
     return y, energy[0]

@@ -4,8 +4,10 @@ Pallas TPU kernel ``randk_gather`` of
 ``repro/kernels/randk_gather/kernel.py``.
 
 The tensor's device is the route: a CPU tensor runs the plain version
-(``ref.randk_gather_ref``); a CUDA tensor launches the kernel or raises.
-The wrapper checks dtypes (delta f32 or bf16, indices int32), shapes and
+(``ref.randk_gather_ref``); a CUDA tensor launches the kernel or raises;
+a ``meta`` tensor gets the kernel's output as a meta tensor and charges
+the active ``launch.op_cost`` counter with ``work`` (the CUDA launch
+charges it too). The wrapper checks dtypes (delta f32 or bf16, indices int32), shapes and
 contiguity. The scale reaches the kernel cast to delta's dtype, as the
 TPU kernel casts it (``_route.scalar_arg``): a number is rounded on the
 host and passed by value; a tensor of delta's dtype or of f32 on delta's
@@ -25,8 +27,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import current_stream, on_cpu, scalar_arg
+from repro_torch.kernels._route import current_stream, route, scalar_arg
 from repro_torch.kernels.randk_gather import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "randk_gather"
 LANES = 128
@@ -41,6 +44,13 @@ _LL = ctypes.c_longlong
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def work(k_rows: int, elem: int):
+    """(bytes, FLOPs) of one gather of k_rows rows of 128 lanes of
+    ``elem`` bytes: the rows read and written once, the int32 indices and
+    the scale read; a scale an element."""
+    return 2 * k_rows * LANES * elem + 4 * k_rows + elem, 1.0 * k_rows * LANES
 
 
 def _lib() -> ctypes.CDLL:
@@ -69,7 +79,8 @@ def randk_gather(delta_rows: torch.Tensor, idx_rows: torch.Tensor,
     scale: a number or a one-element tensor. Returns (k_rows, 128)
     ``delta_rows[idx_rows] * scale`` in delta's dtype."""
     check_shapes(delta_rows, idx_rows)
-    if on_cpu(delta_rows, idx_rows):
+    where = route(delta_rows, idx_rows)
+    if where == "cpu":
         return ref.randk_gather_ref(delta_rows, idx_rows, scale)
     if delta_rows.dtype not in DTYPES:
         raise TypeError(f"delta_rows must be float32 or bfloat16, got "
@@ -82,6 +93,10 @@ def randk_gather(delta_rows: torch.Tensor, idx_rows: torch.Tensor,
     if rows < 1 or k_rows < 1:
         raise ValueError(f"empty operand: delta_rows "
                          f"{tuple(delta_rows.shape)}, k_rows {k_rows}")
+    n_work = work(k_rows, delta_rows.element_size())
+    if where == "meta":
+        op_cost.charge_kernel("randk_gather", *n_work)
+        return delta_rows.new_empty((k_rows, LANES))
     s, s_f32, s_val = scalar_arg(scale, delta_rows, "scale", f32_ok=True)
     out = torch.empty((k_rows, LANES), dtype=delta_rows.dtype,
                       device=delta_rows.device)
@@ -93,6 +108,7 @@ def randk_gather(delta_rows: torch.Tensor, idx_rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"randk_gather: CUDA error {err} at launch")
     LAUNCHES["randk_gather"] += 1
+    op_cost.charge_kernel("randk_gather", *n_work)
     return out
 
 

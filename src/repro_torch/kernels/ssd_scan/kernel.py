@@ -3,10 +3,12 @@
 ``ssd_scan`` of ``repro/kernels/ssd_scan/kernel.py``.
 
 The tensor's device is the route: a CPU tensor runs the plain version
-(``ref.ssd_chunked``); a CUDA tensor launches a kernel or raises. The
-dtype of x, B and C picks the kernel: bf16 (what serving runs) the
-tensor-core one, whose rounding ``ref.split_bf16_route`` emulates; f32 the
-CUDA-core one. The wrapper checks device, dtypes, shapes and strides,
+(``ref.ssd_chunked``); a CUDA tensor launches a kernel or raises; a
+``meta`` tensor gets the kernel's outputs as meta tensors and charges the
+active ``launch.op_cost`` counter with ``work`` (the CUDA launch charges
+it too). The dtype of x, B and C picks the kernel: bf16 (what serving
+runs) the tensor-core one, whose rounding ``ref.split_bf16_route``
+emulates; f32 the CUDA-core one. The wrapper checks device, dtypes, shapes and strides,
 refuses a chunk that does not divide the sequence or does not fit the
 block's shared memory (the TPU kernel falls back to one chunk of the whole
 sequence; this one does not), allocates the outputs with ``torch.empty``,
@@ -22,8 +24,9 @@ from typing import Dict, Set, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import current_stream, on_cpu
+from repro_torch.kernels._route import current_stream, route
 from repro_torch.kernels.ssd_scan import ref
+from repro_torch.launch import op_cost
 
 SOURCE = "ssd_scan"
 DIMS = (32, 64, 128)            # the P and N the kernel is built for
@@ -41,6 +44,25 @@ _I = ctypes.c_int
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def work(b, s, h, p, n, chunk, elem):
+    """(bytes, FLOPs) of one scan: each input read once (x, B and C in
+    ``elem`` bytes, dt and A in f32), y and the final state written once
+    (f32); C B^T once a chunk (its causal half), and for each head the
+    intra-chunk product (causal half), the carried-in term and the state
+    update."""
+    n_bytes = (b * s * h * p * elem + b * s * h * 4 + h * 4
+               + 2 * b * s * n * elem + b * s * h * p * 4 + b * h * p * n * 4)
+    nc = s // chunk
+    tri = chunk * (chunk + 1) / 2
+    flops = b * nc * (2 * tri * n + h * (2 * tri * p + 4 * chunk * p * n))
+    return n_bytes, flops
+
+
+def _work_of(x, b, chunk):
+    bsz, s, h, p = x.shape
+    return work(bsz, s, h, p, b.shape[-1], chunk, x.element_size())
 
 
 def _lib() -> ctypes.CDLL:
@@ -82,7 +104,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b and c (B,S,N) -> (y (B,S,H,P) f32, final state (B,H,P,N) f32), from
     a zero initial state."""
     check_shapes(x, dt, a, b, c, chunk)
-    if on_cpu(x, dt, a, b, c):
+    where = route(x, dt, a, b, c)
+    if where == "cpu":
         return ref.ssd_chunked(x, dt, a, b, c, chunk)
     p, n = x.shape[-1], b.shape[-1]
     if x.dtype not in (torch.float32, torch.bfloat16) \
@@ -101,6 +124,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("x, b and c must have a unit innermost stride")
     if not (dt.is_contiguous() and a.is_contiguous()):
         raise ValueError("dt and a must be contiguous")
+    if where == "meta":
+        op_cost.charge_kernel("ssd_scan", *_work_of(x, b, chunk))
+        bsz, s, h, _ = x.shape
+        return (x.new_empty((bsz, s, h, p), dtype=torch.float32),
+                x.new_empty((bsz, h, p, n), dtype=torch.float32))
     lib = _lib()
     if x.get_device() == torch.cuda.current_device():
         return _launch(lib, x, dt, a, b, c, chunk)
@@ -131,6 +159,7 @@ def _launch(lib, x, dt, a, b, c, chunk):
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA error {err} at launch")
     LAUNCHES["ssd_scan"] += 1
+    op_cost.charge_kernel("ssd_scan", *_work_of(x, b, chunk))
     return y, state
 
 

@@ -1,22 +1,69 @@
-"""The cohort's process group (port of the cohort part of
+"""The production mesh as shapes, and the cohort's process group (port of
 ``repro/launch/mesh.py``).
+
+``MeshShape`` is a mesh with no devices: ordered axis names and their
+extents. The port lowers nothing, so the production meshes
+(``make_production_mesh``, ``make_host_mesh``) are shapes that the
+sharding rules (``repro_torch.sharding``) resolve specs against and that
+``launch.dryrun`` divides the batch by. ``use_mesh``, ``make_mesh`` and
+``shard_map_compat`` have no counterpart: they activate or build a JAX
+device mesh, and the port runs no GSPMD program.
 
 The reference shards the r selected clients of a round over a ("pod",
 "data") device mesh; here each shard is one rank of a
 ``torch.distributed`` group, and the AirComp superposition is an
 ``all_reduce`` over it. The package never picks a backend: the caller
 initialises the group, with gloo for ranks that share a card or run on
-the CPU, and NCCL once each rank has its own card. The TPU-mesh helpers
-of the reference (``make_production_mesh``, ``make_host_mesh``,
-``use_mesh``, ``shard_map_compat``) have no counterpart here.
+the CPU, and NCCL once each rank has its own card.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch import op_cost
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A device mesh as shapes only: ``axis_names`` in order and their
+    ``extents``. ``shape`` maps each name to its extent, as a JAX mesh's
+    ``shape`` does, so the sharding rules read either."""
+    axis_names: Tuple[str, ...]
+    extents: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.extents):
+            raise ValueError(f"{len(self.axis_names)} axis names for "
+                             f"{len(self.extents)} extents")
+        if any(int(e) < 1 for e in self.extents):
+            raise ValueError(f"extents must be >= 1, got {self.extents}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, (int(e) for e in self.extents)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(int(e) for e in self.extents)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """(16, 16) ``data, model``: one pod of 256 chips; or (2, 16, 16)
+    ``pod, data, model``: two pods, 512 chips."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_host_mesh(shape: Sequence[int] = (1, 1),
+                   axes: Sequence[str] = ("data", "model")) -> MeshShape:
+    """A small mesh (one device by default): the port's own runs."""
+    return MeshShape(tuple(axes), tuple(int(e) for e in shape))
 
 
 def cohort_shape(r: int, n_dev: int):
@@ -65,6 +112,7 @@ class CohortGroup:
         """The sum of ``t`` over every rank of the group, in place. Every
         rank ends with the same bits."""
         dist.all_reduce(t, group=self.group)
+        op_cost.charge_collective("all-reduce", t.nbytes, self.world)
         return t
 
     def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
@@ -77,6 +125,8 @@ class CohortGroup:
         parts: List[torch.Tensor] = [torch.empty_like(local)
                                      for _ in range(self.world)]
         dist.all_gather(parts, local.contiguous(), group=self.group)
+        op_cost.charge_collective("all-gather", local.nbytes * self.world,
+                                  self.world)
         return torch.cat(parts[:self.shards])
 
 

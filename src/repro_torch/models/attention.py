@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import kernel as flash_kernel
 from repro_torch.models import layers
+from repro_torch.sharding.rules import usable_axes
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -193,6 +194,28 @@ def attn_train(p, cfg: ModelConfig, x, positions, *, window=None,
     b, s = out.shape[:2]
     y = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
     return y, {"k": k, "v": v}
+
+
+def kv_cache_spec(shape, mesh):
+    """The spec of a (B, S, Hkv, Dh) decode cache on ``mesh`` (the
+    reference's ``kv_cache_spec``): the batch over (pod, data) when it
+    divides, and the head dim over `model` (the reference keeps the
+    one-slot token write local that way), else the KV heads over
+    `model`, else replicated."""
+    usable = usable_axes(mesh)
+    b, hkv, dh = shape[0], shape[2], shape[3]
+    batch_axes = tuple(a for a in ("pod", "data") if a in usable)
+    bsz = 1
+    for a in batch_axes:
+        bsz *= mesh.shape[a]
+    if not batch_axes or b % bsz != 0:
+        batch_axes = None
+    msize = mesh.shape.get("model", 1)
+    if "model" in usable and dh % msize == 0:
+        return (batch_axes, None, None, "model")
+    if "model" in usable and hkv % msize == 0:
+        return (batch_axes, None, "model", None)
+    return (batch_axes, None, None, None)
 
 
 def make_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,

@@ -56,7 +56,11 @@ def _routing_plan(top_e: torch.Tensor, e: int, cap: int):
     tk = flat_e.numel()
     order = torch.argsort(flat_e, stable=True)
     ranks = torch.argsort(order)                           # inverse perm
-    counts = torch.bincount(flat_e, minlength=e)
+    # the reference's bincount(length=e): a fixed length, which also
+    # runs on the meta device (torch.bincount's length is the data's)
+    counts = torch.zeros((e,), dtype=torch.int64,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int64))
     starts = torch.cumsum(counts, 0) - counts
     pos = ranks - starts[flat_e]                           # pos in expert
     keep = pos < cap

@@ -132,6 +132,84 @@ def init_params(key: torch.Tensor, cfg: ModelConfig,
     return params
 
 
+def init_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params as ``meta`` tensors (shapes and dtypes, nothing
+    allocated): the reference's ``init_shapes`` for the dry run."""
+    return init_params(None, cfg, device="meta")
+
+
+# the logical axis names of each leaf (``sharding.rules`` resolves them),
+# as the reference's init functions return them beside their params
+_ATTN_LOGICAL = {"wq": ("fsdp", "tensor"), "wk": ("fsdp", "tensor"),
+                 "wv": ("fsdp", "tensor"), "wo": ("tensor", "fsdp")}
+_QKV_BIAS_LOGICAL = {"bq": ("tensor",), "bk": ("tensor",),
+                     "bv": ("tensor",)}
+_MAMBA_LOGICAL = {"in_proj": ("fsdp", "tensor"), "conv_w": (None, "tensor"),
+                  "conv_b": ("tensor",), "A_log": (None,), "D": (None,),
+                  "dt_bias": (None,), "norm_scale": ("tensor",),
+                  "out_proj": ("tensor", "fsdp")}
+_MOE_LOGICAL = {"router": (None, "tensor"), "wi": ("tensor", "fsdp", None),
+                "wg": ("tensor", "fsdp", None),
+                "wo": ("tensor", None, "fsdp")}
+
+
+def _norm_logical(kind: str):
+    if kind == "rmsnorm":
+        return {"scale": (None,)}
+    return {"scale": (None,), "bias": (None,)}
+
+
+def _block_logical(kind: str, cfg: ModelConfig, *, cross: bool):
+    attn = dict(_ATTN_LOGICAL, **(_QKV_BIAS_LOGICAL if cfg.qkv_bias
+                                  else {}))
+    lg = {"ln1": _norm_logical(cfg.norm)}
+    if kind == "mamba":
+        lg["mamba"] = dict(_MAMBA_LOGICAL)
+        return lg
+    lg["attn"] = attn
+    if cross:
+        lg["ln_cross"] = _norm_logical(cfg.norm)
+        lg["cross"] = dict(attn)
+    lg["ln2"] = _norm_logical(cfg.norm)
+    if kind == "moe":
+        lg["moe"] = dict(_MOE_LOGICAL)
+    elif cfg.mlp_act == "swiglu":
+        lg["mlp"] = {"wi": ("fsdp", "tensor"), "wg": ("fsdp", "tensor"),
+                     "wo": ("tensor", "fsdp")}
+    else:
+        lg["mlp"] = {"wi": ("fsdp", "tensor"), "wo": ("tensor", "fsdp")}
+    return lg
+
+
+def _stacked(lg):
+    """Every spec of a block's tree with the leading repeat axis."""
+    if isinstance(lg, dict):
+        return {k: _stacked(v) for k, v in lg.items()}
+    return ("layers",) + tuple(lg)
+
+
+def logical_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params' tree of logical axis names (a tuple of names or None a
+    leaf), the reference's ``logical_axes``: the tree its init functions
+    return beside the params (``repro/models/layers.py``, ``attention``,
+    ``mamba2``, ``moe``), stacked blocks with a leading ``"layers"``
+    axis."""
+    lg: Dict[str, Any] = {
+        "embed": {"table": ("tensor", "fsdp")},
+        "blocks": tuple(
+            _stacked(_block_logical(kind, cfg, cross=cfg.is_encoder_decoder
+                                    and kind != "mamba"))
+            for kind in cfg.block_pattern),
+        "final_norm": _norm_logical(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        lg["lm_head"] = {"w": ("fsdp", "tensor")}
+    if cfg.is_encoder_decoder:
+        lg["enc_blocks"] = _stacked(_block_logical("attn", cfg, cross=False))
+        lg["enc_final_norm"] = _norm_logical(cfg.norm)
+    return lg
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():

@@ -6,6 +6,8 @@ The plain versions of the two kernels (``client_sumsq_ref``,
 ref; then ``fused_pipeline`` / ``fused_transmit`` against the
 reference's; then the port's fused path against its own unfused path.
 On the CPU the kernel wrappers take the plain route and never launch."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,7 +203,8 @@ def test_launch_counters_stay_zero_on_cpu():
 
 
 def test_wrappers_refuse_other_devices():
-    u = torch.zeros((2, 8), device="meta")
+    # meta is a route of its own (shapes only; tests/test_torch_dryrun.py)
+    u = types.SimpleNamespace(ndim=2, device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
         tkernel.client_sumsq(u)
     with pytest.raises(ValueError, match="several devices"):
