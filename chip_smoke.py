@@ -17,7 +17,19 @@ Phases, each printing one JSON line:
    matmuls and cuDNN convolutions (cuDNN defaults to TF32).
 2. ``build``: nvcc builds the kernels from ``src/repro_torch/csrc``, one
    process per source, all started together.
-3. ``dryrun``: predictions, before the runs they predict, by
+3. ``draws``: the port's threefry draws on the card against its CPU
+   route, bit for bit (the same ops round alike on both): ``uniform``,
+   ``normal`` in f32 and bf16, ``normal_fma`` and ``exponential`` at
+   2^24 values; ``gamma`` and ``loggamma`` at alphas 0.1, 0.5, 1 and 3
+   and ``dirichlet`` (Dirichlet(0.5) over 62 classes) at 2^18 values
+   (the CPU route's rejection loops set the size: 9-25 s a draw of 2^20
+   on the H100 machine's host); the Markov channel's
+   gains from a 2^24-value latent and one AR(1) step of it; and XLA's
+   f32 ``log1p``, ``exp``, ``erf``, ``erfc``, ``ndtr``, ``rsqrt`` and
+   ``erf_inv`` (``repro_torch.prng``) on the CPU tests' stratified inputs
+   (``repro_torch.xla_samples``). One line a draw with its mismatches
+   and the card's and the CPU's seconds; any mismatch fails the run.
+4. ``dryrun``: predictions, before the runs they predict, by
    ``repro_torch.launch.dryrun.dryrun_one`` on the meta device (a
    one-device mesh, in parallel worker processes): zamba2-2.7b's
    production step at 8 x 512 and tau = 1 and its serve prefill at
@@ -25,7 +37,7 @@ Phases, each printing one JSON line:
    from its 32 layers down to the deepest predicted to peak at no more
    than 70 GB, the depth its card run takes: peak bytes, FLOPs, bytes
    moved, model FLOPs, the roofline terms, the kernels' charged work.
-4. ``kernels``: each hand-written kernel against its plain torch version
+5. ``kernels``: each hand-written kernel against its plain torch version
    on the card, at its main-path shapes and at ragged small shapes; run
    twice for bit-identity; timed with CUDA events beside its bound, the
    plain version and a one-call PyTorch yardstick where one exists. The
@@ -64,21 +76,21 @@ Phases, each printing one JSON line:
    gather's with either scale), the gather also in bf16 and beside
    ``index_select`` alone (the gather without the scale), with its
    ``ptxas`` registers and spills.
-5. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
+6. ``main_path``: the port's ``Trainer.run`` of PFELS on the paper's
    VGG-11 (d = 9,222,858) with N = 1000 clients of 50 CIFAR-size
    synthetic images, r = 32, tau = 5, transmit clip 0.25, fused kernels,
    3 rounds. Launch counters are zeroed just before and read just after.
-6. ``kernel_api``: the path of the three row kernels, the public kernel
+7. ``kernel_api``: the path of the three row kernels, the public kernel
    API (``clip_flat``, ``row_indices_from_coords``, ``gather_rows``,
    ``combine``), once at VGG-11 width as one transmit and combine;
    counters zeroed just before and read just after; checked against the
    same chain through the plain versions.
-7. ``baselines``: ``Trainer.run`` of WFL-P, WFL-PDP, DP-FedAvg, FedAvg and
+8. ``baselines``: ``Trainer.run`` of WFL-P, WFL-PDP, DP-FedAvg, FedAvg and
    PFELS with error feedback at the main path's config, 2 rounds each:
    s/round, peak memory, metrics and every kernel's launches (the EF run
    holds the 36.9 GB residual bank, freed before the serve phases);
    ``--profile`` adds one profiled round of each.
-8. ``scenarios``: the golden rows' channel models, compressors and
+9. ``scenarios``: the golden rows' channel models, compressors and
    schedules at the main path's config, 2 rounds each: ``markov_fading``
    (rho 0.9), ``mimo_mrc`` (M = 4 and 8), ``dropout`` (0.4),
    ``top_k_ef`` (clip 0.5; the 36.9 GB residual bank, freed after),
@@ -89,11 +101,11 @@ Phases, each printing one JSON line:
    metrics, round 1 once more unfused from the same state and key (digest
    gap limit 1e-4), and for ``markov_fading`` the streamed bank's channel
    carry against the resident one's.
-9. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
+10. ``parity_on_card``: the golden problem (BENCH_MLP, 2 rounds) fused
    (kernels) against unfused (plain torch), and 31 committed rows (PFELS,
    the baselines, error feedback, the channel models, compressors and
    schedules, resident and streamed) against the reference's digests.
-10. ``sharded``: the sharded cohort (``client_sharding="cohort"``) on 4
+11. ``sharded``: the sharded cohort (``client_sharding="cohort"``) on 4
    gloo ranks sharing the card, each a spawned process holding the whole
    replicated state (the gloo backend takes CUDA tensors; NCCL refuses
    two ranks on one device): the seven ``*-sharded`` golden rows against
@@ -114,13 +126,13 @@ Phases, each printing one JSON line:
    calls, bytes and seconds (each collective timed between two
    synchronisations, so that its time includes the wait for the slowest
    rank), beside ``main_path``'s round times.
-11. ``sharded`` (multi-pod): the production step with a client dim
+12. ``sharded`` (multi-pod): the production step with a client dim
    (``make_pfels_train_step(n_clients=2)``): the reduced mamba2-130m in
    f32 on the card against the CPU, then mamba2-130m at full width (batch
    8 x 512, 4 rows a client), 3 steps: s/step, peak memory, ``clip_norm``
    launches (2 a step: once a client a local step), finite metrics and
    params, the two clients' replicas equal.
-12. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
+13. ``conv_parity_on_card``: the port's convolutions with cuDNN's flags at
    PyTorch's defaults around the phase (TF32 on), so that the package's
    own scoping is what is checked: one local step's gradient at
    BENCH_CNN_CIFAR's and VGG-11's widths against the CPU (and without
@@ -130,7 +142,7 @@ Phases, each printing one JSON line:
    round without the package's scope under ``phase_device``'s flags (TF32
    off, nondeterministic algorithms allowed): whether that repeats, and
    what the deterministic algorithms cost in wall and device time.
-13. ``femnist``: the paper's second experiment, PFELS on the full-width
+14. ``femnist``: the paper's second experiment, PFELS on the full-width
    ResNet-18 of FEMNIST (d = 11,189,886) with N = 1000 clients of 50
    synthetic 1x28x28 images under a Dirichlet(0.5) label skew, drawn on
    the card, 3 rounds at the main path's settings: s/round, peak memory,
@@ -138,22 +150,22 @@ Phases, each printing one JSON line:
    labels' skew; one more round twice from one state and key (bit-equal,
    the second profiled: device idle share and time by kernel kind); one
    local step's gradient, card against CPU.
-14. ``streamed``: the streamed bank against the resident one from the
+15. ``streamed``: the streamed bank against the resident one from the
    same state and key, bit for bit: the main path's config (VGG-11,
    N = 1000, 3 rounds; both runs' s/round and peak memory), and PFELS
    with error feedback at BENCH_CNN_CIFAR's width.
-15. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
+16. ``train_cli``: ``python -m repro_torch.launch.train`` in a process of
    its own, with the reference's defaults for 10 rounds and at
    population scale (streamed bank, 100,000 clients); its ``--out`` JSON
    checked.
-16. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
+17. ``serve_parity_on_card``: reduced zamba2-2.7b, mamba2-130m,
    granite-moe-3b-a800m (6 padded experts over 4), whisper-tiny and
    qwen2-vl-72b in f32, prefill (with the f32 stub prefix of the last two),
    8 greedy decode steps and 8 sampled ones on the card (kernels) against
    the same params on the CPU (plain versions), the launches against
    those the config implies; and the reduced zamba2-2.7b's bf16 prefill,
    card against CPU, within 3% of max|logit|.
-17. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
+18. ``serve``: ``repro_torch.launch.serve.serve`` at full width, bf16,
    random weights from seed 0, each model freed before the next:
    zamba2-2.7b and mamba2-130m (batch 8, prompt 2048, 64 greedy tokens),
    granite-moe-3b-a800m (batch 8, prompt 2048, 64 greedy then 64 sampled
@@ -169,7 +181,7 @@ Phases, each printing one JSON line:
    (the first one's peak memory beside the dry run's prediction) and one
    more under the profiler: its device time, and each LLM kernel's
    device ms and share of it.
-18. ``llm_train``: PFELS as the optimizer of one transformer that is one
+19. ``llm_train``: PFELS as the optimizer of one transformer that is one
    FL client (``repro_torch.launch.steps.make_pfels_train_step``). First
    one step of the reduced zamba2-2.7b in f32 on the card against the CPU
    route, at the CPU tests' tolerances. Then zamba2-2.7b at full width and
@@ -202,6 +214,15 @@ uses only what every tree of the port with ``launch/roofline.py`` and
 the kernels' ``work`` formulas has: copy this script into a parent
 commit's checkout (``git archive``) and run it there and here in turns,
 in one call, to compare the two.
+
+``--draws`` runs the device and ``draws`` phases only, and prints no
+result line.
+
+``--llm-train`` runs the device, build and dryrun phases and then only
+``llm_train`` (zamba2-2.7b's steps and granite-moe-3b-a800m's at the dry
+run's depth), and prints no result line: copy this script into a parent
+commit's checkout and run it there and here in turns, in one call, to
+compare the production step's time and peak.
 
 ``--sharded`` runs the device and build phases, the transmit pair at
 the per-shard shapes, ``main_path`` and the two ``sharded`` phases, and
@@ -2344,7 +2365,12 @@ def phase_sharded(main_info, yardstick=False):
 # BENCH_CNN_CIFAR at the default config, with these keys: the same. At
 # other keys a ReLU or max-pool somewhere among the 32 x 5 steps can
 # switch under any f32 difference and move the digests as far as TF32
-# does; the step gradient has no such switch.
+# does. One step can switch a ReLU too, where a pre-activation lies
+# within f32 rounding of 0: FEMNIST's ResNet-18 step on client 0 switches
+# two (pre-activations 6.0e-8 and 9.5e-7), and the card's and the CPU's
+# steps are each as far from the step in f64 (1.3e-5, 3.8e-5 of max|g|)
+# as from each other (3.8e-5). So femnist holds the CPU's step with the
+# card's ReLU pattern to the limit, and prints the gap without it.
 CONV_GRAD_TOL = 1e-5
 CONV_DIGEST_TOL = 1e-4
 
@@ -2387,27 +2413,51 @@ def _without_package_scope():
         cnn.f32_convs = saved
 
 
-def _step_gradient(model_cfg, params, x, y, device):
+def _step_gradient(model_cfg, params, x, y, device, relu_masks=None,
+                   replay=False):
     """The gradient of ``local_train``'s first step (read in a hook on
     each param leaf, inside the port's own scope) and its loss, on
-    ``device``."""
+    ``device``. With ``relu_masks`` (a list) each ``torch.relu`` of the
+    step records its output's pattern (input > 0) into it, or with
+    ``replay`` applies the recorded patterns in order instead of its
+    own; a replay also returns how many elements its own pattern would
+    have switched."""
+    import torch
     from repro_torch import prng
     from repro_torch.fl.client import local_train
     from repro_torch.models import cnn
     from repro_torch.tree import ravel
 
     grads = {}
+    switched = [0]
 
     def loss_fn(p, batch):
         for n, t in p.items():
             t.register_hook(lambda g, n=n: grads.__setitem__(n, g.detach()))
         return cnn.cnn_loss(p, model_cfg, batch)
 
-    _, loss = local_train({n: t.to(device) for n, t in params.items()},
-                          x.to(device), y.to(device),
-                          prng.PRNGKey(5, device), loss_fn=loss_fn, steps=1,
-                          lr=0.05, clip=1.0, momentum=0.9)
-    return ravel({n: grads[n] for n in params}).cpu(), float(loss)
+    real_relu = torch.relu
+    pattern = iter(relu_masks or ())
+
+    def relu(t):
+        if not replay:
+            relu_masks.append((t > 0).detach().cpu())
+            return real_relu(t)
+        m = next(pattern).to(t.device)
+        switched[0] += int(((t > 0) != m).sum())
+        return t * m.to(t.dtype)
+
+    if relu_masks is not None:
+        torch.relu = relu
+    try:
+        _, loss = local_train({n: t.to(device) for n, t in params.items()},
+                              x.to(device), y.to(device),
+                              prng.PRNGKey(5, device), loss_fn=loss_fn,
+                              steps=1, lr=0.05, clip=1.0, momentum=0.9)
+    finally:
+        torch.relu = real_relu
+    g = ravel({n: grads[n] for n in params}).cpu()
+    return (g, float(loss), switched[0]) if replay else (g, float(loss))
 
 
 # the VGG-11 rounds of conv_parity_on_card: with the package's scope
@@ -2651,7 +2701,9 @@ def phase_femnist():
     profiler: device busy time, idle share, time by kernel kind), and one
     ``local_train`` step's gradient at this width on the card against the
     CPU under PyTorch's default cuDNN flags (the package's scope must
-    hold it within ``CONV_GRAD_TOL`` of max|g|)."""
+    hold it within ``CONV_GRAD_TOL`` of max|g|, the CPU's step taking the
+    card's ReLU pattern; the gap with the CPU's own pattern and the count
+    of switched ReLU outputs printed beside it)."""
     import torch
     from repro_torch import prng
     from repro_torch.configs import PAPER_RESNET18_FEMNIST, PFELSConfig
@@ -2698,10 +2750,17 @@ def phase_femnist():
         and torch.equal(first[0].prev_delta, second[0].prev_delta)
         and all(torch.equal(first[1][k], second[1][k]) for k in first[1]))
 
+    masks = []
     with _pytorch_cudnn_flags():
-        g_cpu, _ = _step_gradient(cfg_m, params, x[0], y[0], "cpu")
-        g_card, _ = _step_gradient(cfg_m, params, x[0], y[0], "cuda")
-    grad_gap = float((g_card - g_cpu).abs().max()) / float(g_cpu.abs().max())
+        g_card, _ = _step_gradient(cfg_m, params, x[0], y[0], "cuda",
+                                   relu_masks=masks)
+        g_cpu, _, switched = _step_gradient(cfg_m, params, x[0], y[0],
+                                            "cpu", relu_masks=masks,
+                                            replay=True)
+        g_own, _ = _step_gradient(cfg_m, params, x[0], y[0], "cpu")
+    scale = float(g_cpu.abs().max())
+    grad_gap = float((g_card - g_cpu).abs().max()) / scale
+    own_gap = float((g_card - g_own).abs().max()) / scale
 
     line = {"phase": "femnist", "model": cfg_m.name, "d": d,
             "k": int(m["subcarriers"][0]), "n_clients": cfg.num_clients,
@@ -2721,7 +2780,11 @@ def phase_femnist():
                                    prof["device_idle_share"],
                                "split": round_split(prof)},
             "step_gradient_gap_rel_to_max": grad_gap,
-            "tolerance": {"step_gradient": f"{CONV_GRAD_TOL} of max|g|"}}
+            "step_gradient_relu_switched": switched,
+            "step_gradient_gap_own_relu_pattern": own_gap,
+            "tolerance": {"step_gradient": f"{CONV_GRAD_TOL} of max|g|, the "
+                                           f"CPU with the card's ReLU "
+                                           f"pattern"}}
     emit(line)
     failures = []
     if d != 11_189_886:
@@ -3669,6 +3732,101 @@ def profile_llm_step(cfg, params, pfels, step, batch, k, d, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- draws
+
+DRAWS_N = 1 << 24
+DRAWS_GAMMA_N = 1 << 18
+DRAWS_DIRICHLET_ROWS = (1 << 18) // 62
+
+
+def _bit_mismatches(a, b) -> int:
+    """Elements of a (the card's, moved to the CPU) and b (the CPU's)
+    whose bits differ; NaNs of any payload count as equal."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} against "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if not a.dtype.is_floating_point:
+        return int((a != b).sum())
+    iview = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float64: torch.int64}[a.dtype]
+    nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(iview) != b.view(iview)) & ~nan).sum())
+
+
+def phase_draws():
+    """The port's draws and XLA-CPU f32 functions on the card against the
+    CPU route, bit for bit: one line a case with its size, its mismatches
+    and the seconds of the card's and the CPU's call, then the phase's
+    line. Any mismatch raises."""
+    import torch
+    from repro_torch import prng, xla_samples
+    from repro_torch.configs import ChannelConfig
+    from repro_torch.core.channels import markov
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or threads)
+    t0 = time.perf_counter()
+    n, ng = DRAWS_N, DRAWS_GAMMA_N
+    mcfg = ChannelConfig(model="markov_fading", markov_rho=0.9)
+
+    def key(dev, seed=0):
+        return prng.PRNGKey(seed, dev)
+
+    def markov_step(dev):
+        carry = prng.normal(key(dev, 1), (n,))
+        sel = torch.arange(0, n, 4096, device=dev)
+        z, cr = markov._step(carry, mcfg, int(sel.numel()), sel,
+                             key(dev, 2), key(dev, 3))
+        return torch.cat([z, cr.gains])
+
+    cases = [
+        ("uniform", n, lambda d: prng.uniform(key(d), (n,))),
+        ("normal_f32", n, lambda d: prng.normal(key(d), (n,))),
+        ("normal_bf16", n,
+         lambda d: prng.normal(key(d), (n,), dtype=torch.bfloat16)),
+        ("normal_fma", n, lambda d: prng.normal_fma(
+            key(d), (n,), 0.7, prng.uniform(key(d, 9), (n,)))),
+        ("exponential", n, lambda d: prng.exponential(key(d), (n,))),
+    ]
+    for alpha in (0.1, 0.5, 1.0, 3.0):
+        cases += [(f"gamma_{alpha}", ng,
+                   lambda d, a=alpha: prng.gamma(key(d), a, (ng,))),
+                  (f"loggamma_{alpha}", ng,
+                   lambda d, a=alpha: prng.loggamma(key(d), a, (ng,)))]
+    cases += [
+        ("dirichlet_0.5x62", DRAWS_DIRICHLET_ROWS * 62,
+         lambda d: prng.dirichlet(key(d), torch.full((62,), 0.5, device=d),
+                                  (DRAWS_DIRICHLET_ROWS,))),
+        ("markov_gains", n, lambda d: markov._gains_from_latent(
+            prng.normal(key(d, 4), (n,)), mcfg)),
+        ("markov_step", n + n // 4096, markov_step),
+    ]
+    for name, (fn, _, _) in sorted(xla_samples.FUNCTIONS.items()):
+        x = torch.from_numpy(xla_samples.sample(name))
+        cases.append((f"{fn}_stratified", x.numel(),
+                      lambda d, f=getattr(prng, fn), x=x: f(x.to(d))))
+    total = 0
+    for name, size, fn in cases:
+        t1 = time.perf_counter()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = fn("cpu")
+        t3 = time.perf_counter()
+        bad = _bit_mismatches(got.cpu(), want)
+        total += bad
+        emit({"phase": "draws", "draw": name, "n": size,
+              "mismatches": bad, "seconds_card": t2 - t1,
+              "seconds_cpu": t3 - t2})
+        del got, want
+    torch.set_num_threads(threads)
+    emit({"phase": "draws", "cases": len(cases), "mismatches_total": total,
+          "seconds": time.perf_counter() - t0})
+    if total:
+        raise AssertionError(f"{total} draws differ between the card and "
+                             f"the CPU")
+
+
 # ------------------------------------------------------------ the dry run
 
 def _dryrun_job(job):
@@ -4016,6 +4174,12 @@ def main(argv=None) -> int:
                          "the main path, the sharded cohort on 4 gloo "
                          "ranks sharing the card and the multi-pod step "
                          "(no result line)")
+    ap.add_argument("--draws", action="store_true",
+                    help="only the draws phase: the port's draws on the "
+                         "card against the CPU route (no result line)")
+    ap.add_argument("--llm-train", action="store_true",
+                    help="only the build, dryrun and llm_train phases (no "
+                         "result line): the comparison with a parent tree")
     ap.add_argument("--time-rows", action="store_true",
                     help="only time the three row kernels at the VGG-11 "
                          "shapes and run the kernel_api chain (no result "
@@ -4037,7 +4201,17 @@ def main(argv=None) -> int:
         phase_row_timing()
         print(smi, flush=True)
         return 0
+    if args.draws:
+        phase_draws()
+        print(smi, flush=True)
+        return 0
     phase_build()
+    if args.llm_train:
+        predicted = phase_dryrun()
+        phase_llm_train(args.profile, predicted["llm_train"])
+        phase_llm_train_families(predicted["granite_train"])
+        print(smi, flush=True)
+        return 0
     if args.sharded:
         for r_shard in (MAIN_R // SHARDED_WORLD, 1):
             check_kernels_at(r_shard, MAIN_D, 1, seed=20 + r_shard,
@@ -4047,6 +4221,7 @@ def main(argv=None) -> int:
         phase_sharded(main_info, yardstick=True)
         print(smi, flush=True)
         return 0
+    phase_draws()
     predicted = phase_dryrun()
     summary = phase_kernels()
     launches, main_info = phase_main_path(args.profile)

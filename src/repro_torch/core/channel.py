@@ -41,6 +41,12 @@ def sample_power_limits(key, n: int, d: int, cfg: ChannelConfig
     return snr * float(d) * cfg.noise_std ** 2
 
 
+def sample_noise(key, k: int, cfg: ChannelConfig) -> torch.Tensor:
+    """z^t ~ N(0, sigma_0^2 I_k), the intrinsic receiver noise, on the
+    key's device."""
+    return cfg.noise_std * prng.normal(key, (k,))
+
+
 def receive(signals: torch.Tensor, gains: torch.Tensor, noise: torch.Tensor
             ) -> torch.Tensor:
     """MAC superposition (Eq. 7/11): y = sum_i |h_i| x_i + z.

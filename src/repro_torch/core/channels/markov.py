@@ -22,8 +22,8 @@ from repro_torch.core.channels.base import (ChannelModel, ChannelRound,
 
 def _gains_from_latent(z, cfg: ChannelConfig):
     """N(0, 1) latent -> Exponential(gain_mean) marginal, clipped."""
-    u = torch.special.ndtr(z)
-    g = -cfg.gain_mean * torch.log1p(-u)
+    u = prng.ndtr_f32(z)
+    g = -cfg.gain_mean * prng.log1p_f32(-u)
     return torch.clamp(g, cfg.gain_clip[0], cfg.gain_clip[1])
 
 
@@ -33,10 +33,12 @@ def _init(key, n: int, cfg: ChannelConfig):
 
 
 def _step(carry, cfg: ChannelConfig, r: int, sel, gains_key, csi_key):
-    rho = torch.tensor(cfg.markov_rho, dtype=torch.float32,
-                       device=carry.device)
-    xi = prng.normal(gains_key, tuple(carry.shape))
-    z = rho * carry + torch.sqrt(1.0 - rho * rho) * xi
+    # rho z + sqrt(1 - rho^2) xi as the reference's jitted round computes
+    # it: the constant folded into the draw, rho z contracted into an FMA
+    rho = torch.tensor(cfg.markov_rho, dtype=torch.float32)
+    scale = float(prng.sqrt_f32(1.0 - rho * rho))
+    z = prng.fma_f32(carry, float(rho),
+                     prng.normal_scaled(gains_key, tuple(carry.shape), scale))
     gains = _gains_from_latent(z[sel], cfg)
     obs = (channel.estimate_gains(csi_key, gains, cfg)
            if cfg.csi_error > 0 else None)

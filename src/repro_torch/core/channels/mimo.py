@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ChannelConfig
 from repro_torch.core import channel
 from repro_torch.core.channels.base import (ChannelModel, ChannelRound,
@@ -29,8 +30,9 @@ def antenna_gains(key, r: int, cfg: ChannelConfig) -> torch.Tensor:
 
 
 def combine_mrc(per_antenna: torch.Tensor) -> torch.Tensor:
-    """(r, M) -> (r,) effective gains under the all-ones beam."""
-    return torch.sum(per_antenna, dim=1)
+    """(r, M) -> (r,) effective gains under the all-ones beam, added in
+    the reference's order."""
+    return prng.sum_last(per_antenna)
 
 
 def _init(key, n: int, cfg: ChannelConfig):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import privacy
 
 
@@ -55,3 +56,12 @@ def beta_wfl_pdp(gains, power_limits, *, c1: float, eta: float, tau: int,
                                         sigma0)
     return torch.minimum(cap_power, torch.tensor(
         cap_priv, dtype=torch.float32, device=cap_power.device))
+
+
+def transmit_energy(beta, gains, signal_sq_norms):
+    """Per-round transmit energy Sum_i ||x_i||^2 with x_i = (beta/|h_i|)
+    A d_i: signal_sq_norms (r,) ||A Delta_i||^2; summed in the
+    reference's order. (A number ``beta`` divides as a tensor: torch
+    computes ``number / tensor`` as a reciprocal times the number.)"""
+    beta = torch.as_tensor(beta, dtype=gains.dtype, device=gains.device)
+    return prng.sum_last((beta / gains) ** 2 * signal_sq_norms)

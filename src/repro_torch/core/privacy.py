@@ -43,7 +43,28 @@ def round_epsilon(beta: float, eta: float, tau: int, c1: float, r: int,
     return c2_coefficient(eta, tau, c1, r, n, delta, sigma0) * beta
 
 
+def sensitivity_bound(beta: float, eta: float, tau: int, c1: float) -> float:
+    """Lemma 2: psi_Delta <= beta * eta * tau * C1."""
+    return beta * eta * tau * c1
+
+
+def gaussian_mechanism_sigma(sensitivity: float, epsilon: float,
+                             delta: float) -> float:
+    """Thm 1: sigma^2 >= 2 ln(1.25/delta) psi^2 / eps^2."""
+    return sensitivity * math.sqrt(2.0 * math.log(1.25 / delta)) / epsilon
+
+
+def amplified_epsilon(eps0: float, r: int, n: int) -> float:
+    """Thm 2 (subsampling): eps' = log(1 + (r/N)(e^eps0 - 1))."""
+    return math.log(1.0 + (r / n) * (math.exp(eps0) - 1.0))
+
+
 # ------------------------------------------------- composition (beyond paper)
+
+def compose_basic(eps_round: float, delta_round: float, rounds: int):
+    """(sum eps, sum delta)."""
+    return eps_round * rounds, delta_round * rounds
+
 
 def compose_advanced(eps_round: float, delta_round: float, rounds: int,
                      delta_prime: float = 1e-6):
@@ -53,6 +74,25 @@ def compose_advanced(eps_round: float, delta_round: float, rounds: int,
     eps_t = math.sqrt(2.0 * rounds * math.log(1.0 / delta_prime)) * e \
         + rounds * e * (math.exp(e) - 1.0)
     return eps_t, rounds * delta_round + delta_prime
+
+
+def compose_zcdp(noise_multiplier: float, rounds: int, delta: float):
+    """zCDP composition (beyond paper, conservative: no subsampling
+    amplification). A Gaussian mechanism with noise multiplier
+    z = sigma/sensitivity satisfies rho = 1/(2 z^2) zCDP per round; T
+    rounds give T*rho, converted to (eps, delta) via
+    eps = rho*T + 2 sqrt(rho*T*log(1/delta))  [Bun & Steinke 2016]."""
+    if noise_multiplier <= 0:
+        return float("inf"), delta
+    rho = rounds / (2.0 * noise_multiplier ** 2)
+    return rho + 2.0 * math.sqrt(rho * math.log(1.0 / delta)), delta
+
+
+def pfels_noise_multiplier(beta: float, eta: float, tau: int, c1: float,
+                           sigma0: float) -> float:
+    """z = sigma0 / psi with psi the Lemma-2 sensitivity."""
+    psi = sensitivity_bound(beta, eta, tau, c1)
+    return sigma0 / max(psi, 1e-30)
 
 
 # ------------------------------------------------------ round ledger

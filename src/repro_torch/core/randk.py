@@ -35,6 +35,12 @@ def unproject(y: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
+def sparsify(x: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
+    """(A^t)^T A^t x: keep only the selected coordinates of x (the
+    reference's signature; ``compressors.sparsify`` takes a ``Support``)."""
+    return unproject(project(x, idx), idx, d)
+
+
 # ------------------------------------------------------------- mask mode
 
 def mask_tree(key, tree, p: float):
@@ -48,3 +54,12 @@ def mask_tree(key, tree, p: float):
 
 def apply_mask_tree(tree, masks):
     return tree_map(lambda x, m: x * m.to(x.dtype), tree, masks)
+
+
+def compression_ratio_of(k: int, d: int) -> float:
+    return k / d
+
+
+def lambda_k(k: int, d: int) -> float:
+    """lambda_k := 1 - k/d (Thm 4 compression-error coefficient)."""
+    return 1.0 - k / d

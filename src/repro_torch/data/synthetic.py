@@ -4,9 +4,8 @@ generated client by client on demand for populations too large to hold
 (port of ``repro/data/synthetic.py``).
 
 Everything is drawn on ``device`` with the port's threefry, so the same
-key gives the reference's IID labels exactly and its images to the
-``normal`` gap (``repro_torch.prng``); the Dirichlet branch's labels to
-the gap of ``prng.dirichlet`` (``tests/test_torch_data.py``).
+key gives the reference's labels, Dirichlet skew included, and its
+images bit for bit (``repro_torch.prng``, ``tests/test_torch_data.py``).
 """
 from __future__ import annotations
 
@@ -86,8 +85,9 @@ def make_population_source(key, *, n_clients: int, per_client: int,
         ck = prng.fold_in(kc, torch.as_tensor(sel))
         lanes = prng.split(ck)
         y = prng.randint(lanes[:, 0], (per_client,), 0, num_classes)
-        x = prng.normal(lanes[:, 1], (per_client,) + shape)
-        x.mul_(noise).add_(protos[y])
+        # the reference's jitted cohort contracts protos + noise * normal
+        x = prng.normal_fma(lanes[:, 1], (per_client,) + shape, noise,
+                            protos[y])
         return x, y
 
     xt, yt = _test_set(kt, protos, num_classes, shape, noise)

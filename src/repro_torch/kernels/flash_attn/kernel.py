@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attn import ref
 from repro_torch.launch import op_cost
 
 SOURCE = "flash_attn"
+NEG_INF = ref.NEG_INF     # the finite mask fill, as in the TPU kernel
 HEAD_DIMS = (64, 80, 96, 128, 160)   # the Dh the kernel is built for
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}

@@ -68,8 +68,9 @@ def clip_scales(updates: torch.Tensor, clip: Optional[float]
 
 def effective_gains(gains: torch.Tensor) -> torch.Tensor:
     """(r,) effective gains from (r,) gains (identity) or an (r, M)
-    per-antenna matrix (the all-ones-beam MRC combine sum_m h_im)."""
-    return gains if gains.ndim == 1 else torch.sum(gains, dim=-1)
+    per-antenna matrix (the all-ones-beam MRC combine sum_m h_im, added
+    in the reference's order)."""
+    return gains if gains.ndim == 1 else prng.sum_last(gains)
 
 
 def transmit_coeffs(gains, beta, scales, gains_est=None):
@@ -118,7 +119,7 @@ def fused_combine_ref(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
         y_j = sum_i g_i tx_i txm_i m_j u_ij + z_j
         E   = sum_i tx_i^2 txm_i sum_j (m_j u_ij)^2
     """
-    rxw = torch.sum(gains_mat, dim=1) * tx * txm
+    rxw = prng.sum_last(gains_mat) * tx * txm
     um = u * mask[None, :]
     y = torch.sum(um * rxw[:, None], dim=0) + z
     energy = torch.sum((tx * tx * txm) * torch.sum(um * um, dim=1))

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import prng
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name ("bfloat16", "float32") as a torch dtype."""
@@ -39,6 +41,34 @@ def normal(gen: Optional[torch.Generator], shape: Sequence[int], scale: float,
                         device=device)
         rows[i].copy_(z.mul_(scale))
     return out
+
+
+def dense_init(key: torch.Tensor, d_in: int, d_out: int, *, bias: bool,
+               dtype, device=None, logical=("fsdp", "tensor")):
+    """A dense layer ``{"w": (d_in, d_out), "b": (d_out,)}`` and its
+    logical axes, as the reference's ``dense_init`` returns them: the
+    weight ``N(0, 1/d_in)`` from the first key of ``split(key)`` (the
+    port's threefry, so the reference's weights bit for bit), drawn in f32
+    and cast to ``dtype`` (a torch dtype or its name); the bias zeros. On
+    ``device``, the key's by default."""
+    if isinstance(dtype, str):
+        dtype = torch_dtype(dtype)
+    key = key.to(device) if device is not None else key
+    kw, _ = prng.split(key)
+    w = (1.0 / math.sqrt(d_in)) * prng.normal(kw, (d_in, d_out))
+    p = {"w": w.to(dtype)}
+    lg = {"w": logical}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=key.device)
+        lg["b"] = (logical[1],)
+    return p, lg
+
+
+def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def norm_init(d: int, kind: str, dtype: torch.dtype, device, lead=()):

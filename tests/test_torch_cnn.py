@@ -102,15 +102,15 @@ def test_flat_order_equals_ravel_pytree(arch):
 @pytest.mark.parametrize("arch", sorted(CFGS))
 @pytest.mark.parametrize("seed", [0, 3])
 def test_init_matches_reference_to_the_normal_gap(arch, seed):
-    """Same key, same weights, to the ``normal`` gap (<= 3 ulp of the
-    draw, then one f32 rounding of the scale): rtol 5e-7."""
+    """Same key, same weights, bit for bit (the ``normal`` draw is
+    ``jax.random``'s, then one f32 rounding of the scale)."""
     jcfg, tcfg = CFGS[arch]
     jflat = np.asarray(ravel_pytree(
         jcnn.init_cnn(jax.random.PRNGKey(seed), jcfg))[0])
     tflat = ravel(tcnn.init_cnn(prng.PRNGKey(seed, "cpu"), tcfg,
                                 device="cpu")).numpy()
     assert tflat.shape == jflat.shape
-    np.testing.assert_allclose(tflat, jflat, rtol=5e-7, atol=0)
+    np.testing.assert_array_equal(tflat, jflat)
 
 
 def test_paper_vgg11_dimension():

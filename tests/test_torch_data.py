@@ -2,9 +2,10 @@
 skew of ``make_federated_classification``, ``make_population_source``,
 and the cohort sources and prefetcher of ``data/loader.py``.
 
-Labels are held for equality (measured: all equal), images within the
-``normal`` gap of ``tests/test_torch_prng.py`` (a few ulp on a few
-percent of the draws, then the prototype add): rtol 1e-5 with atol 1e-6.
+Labels and images are held bit for bit: the draws are
+``jax.random``'s (``tests/test_torch_prng.py``), and the population
+source's cohort adds its noise as the reference's jitted cohort does (one
+rounding, ``prng.normal_fma``).
 """
 import threading
 import time
@@ -22,7 +23,6 @@ from repro.data import synthetic as jsyn
 from repro_torch import prng
 from repro_torch.data import loader, synthetic
 
-RTOL, ATOL = 1e-5, 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -41,10 +41,8 @@ def test_dirichlet_branch_matches_reference(alpha):
         prng.PRNGKey(4, "cpu"), device="cpu", **kw)
     for w, g in zip(want, got):
         assert tuple(g.shape) == w.shape
-    assert np.array_equal(got[1].numpy(), want[1])
-    assert np.array_equal(got[3].numpy(), want[3])
-    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got[2].numpy(), want[2], rtol=RTOL, atol=ATOL)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
     # the skew: a client's labels concentrate on few classes, unlike IID
     iid = synthetic.make_federated_classification(
         prng.PRNGKey(4, "cpu"), device="cpu", **dict(kw, alpha=None))[1]
@@ -68,10 +66,9 @@ def test_population_source_matches_reference():
     x, y = src.cohort(torch.as_tensor(sel))
     assert x.shape == (4, 12, 3, 4, 4) and y.shape == (4, 12)
     assert np.array_equal(y.numpy(), jy)
-    np.testing.assert_allclose(x.numpy(), jx, rtol=RTOL, atol=ATOL)
+    assert np.array_equal(x.numpy(), jx)
     assert np.array_equal(yt.numpy(), np.asarray(jyt))
-    np.testing.assert_allclose(xt.numpy(), np.asarray(jxt), rtol=RTOL,
-                               atol=ATOL)
+    assert np.array_equal(xt.numpy(), np.asarray(jxt))
     # deterministic in the client id, whichever cohort asks
     x2, y2 = src.cohort(torch.as_tensor([5]))
     assert torch.equal(x2[0], x[2]) and torch.equal(y2[0], y[2])

@@ -135,7 +135,7 @@ def test_fused_transmit_matches_reference(r, d, m, clip, masked):
     dh_t, e_t, y_t = tops.fused_transmit(
         _t(u), _t(idx).long(), _t(gains), beta_t,
         prng.key_from_words(np.asarray(nk), "cpu"), tx_mask=t_mask, **kw)
-    # the noise matches to the normal gap (<= 3 ulp), the rest to RTOL
+    # the noise is bit-equal (tests/test_torch_prng.py); the sums to RTOL
     _assert_y_close(dh_t.numpy(), np.asarray(dh_j))
     _assert_y_close(y_t.numpy(), np.asarray(y_j))
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=RTOL)

@@ -1,8 +1,13 @@
 """The port's threefry (``repro_torch.prng``) against ``jax.random`` in
-non-partitionable mode: the integer streams and ``uniform`` are
-bit-equal; ``normal`` and ``exponential`` are within a pinned gap (the
-port's ``torch.log1p`` differs from XLA's in the last bit for some
-inputs)."""
+non-partitionable mode, bit for bit: the integer streams, ``uniform``,
+``normal``, ``exponential``, ``gamma``, ``loggamma``, ``dirichlet`` and
+the labels ``choice`` draws from them, in f32 and bf16; and the XLA CPU
+f32 functions the draws go through (``log``, ``log1p``, ``exp``,
+``erf``, ``erfc``, ``ndtr``, ``rsqrt``, ``erf_inv``, glibc's ``powf``)
+against ``jax.jit`` of the reference op on stratified samples: every
+binade of the range, both sides of every branch point, and zeros,
+subnormals, +-1, infinities and NaN. ``tests/sweep_torch_xla_math.py``
+sweeps every f32 of the draws' ranges instead."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +16,7 @@ import pytest
 # ruff: noqa: E402
 torch = pytest.importorskip("torch")
 
-from repro_torch import prng
+from repro_torch import prng, xla_samples
 
 SEEDS = [0, 1, 42, 2 ** 31 - 1]
 
@@ -36,6 +41,16 @@ def _words(jkey):
 def _original_threefry():
     with jax.threefry_partitionable(False):
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's intra-op pool on one thread: these tests interleave torch
+    and XLA work (see tests/test_torch_checkpoint.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -100,32 +115,22 @@ def test_chunked_generator_keeps_the_counter_pairing(monkeypatch):
 
 @pytest.mark.parametrize("seed", SEEDS[:3])
 def test_normal_and_exponential_within_pinned_gap(seed):
-    """Pinned gap: ``normal`` is at least 98% bit-equal and all but a
-    1e-4 fraction within 3 ulp; the rare value whose
-    ``w = -log1p(-u^2)`` lands on the other side of the erfinv
-    polynomial's branch at w = 5 may differ by up to 1e-3.
-    ``exponential`` is at least 90% bit-equal and within 1 ulp."""
+    """No gap is left: ``normal`` and ``exponential`` are bit-equal, the
+    values whose ``w = -log1p(-u^2)`` lies past the erfinv polynomial's
+    branch at w = 5 included."""
     jk, tk = _jkey(seed), _tkey(seed)
     n = 100_001
-    want = np.asarray(jax.random.normal(jk, (n,)))
-    got = _np(prng.normal(tk, n))
-    ulps = np.abs(got - want) / np.spacing(np.abs(want))
-    assert np.mean(got == want) >= 0.98
-    assert np.mean(ulps <= 3) >= 1 - 1e-4
-    assert np.abs(got - want).max() <= 1e-3
-
-    want = np.asarray(jax.random.exponential(jk, (n,)))
-    got = _np(prng.exponential(tk, n))
-    assert np.mean(got == want) >= 0.90
-    assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+    assert np.array_equal(np.asarray(jax.random.normal(jk, (n,))),
+                          _np(prng.normal(tk, n)))
+    assert np.array_equal(np.asarray(jax.random.exponential(jk, (n,))),
+                          _np(prng.exponential(tk, n)))
 
 
 def test_erfinv_matches_xla_within_pinned_gap():
+    """``erfinv_f32`` is XLA's ``erf_inv`` bit for bit on (-1, 1)."""
     x = np.linspace(-0.999999, 0.999999, 20_001, dtype=np.float32)
     want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
-    got = _np(prng.erfinv_f32(torch.as_tensor(x)))
-    ulps = np.abs(got - want) / np.spacing(np.abs(want))
-    assert np.all(ulps <= 3), ulps.max()
+    assert np.array_equal(_np(prng.erfinv_f32(torch.as_tensor(x))), want)
     assert _np(prng.erfinv_f32(torch.tensor([1.0, -1.0]))).tolist() == [
         np.inf, -np.inf]
 
@@ -137,39 +142,24 @@ def test_seed_outside_int32_raises():
 
 # ------------------------------------------------ gamma, dirichlet, choice
 #
-# JAX's Marsaglia-Tsang sampler, ported step for step. Measured on this
-# file's draws (alpha: share of loggamma samples bit-equal, share of gamma
-# samples bit-equal; every other sample within the bounds below, which no
-# sample that took another rejection path could meet): 0.1: 0.82, 0.70;
-# 0.5: 0.94, 0.98; 1: 0.99, 0.99; 3: 0.85, 0.85. What is left comes from
-# ``log1p`` (the boost below alpha 1, Queue 1 item 14), ``normal``, and
-# at alpha 3 from XLA computing c = 1/3 / sqrt(d) as 1/3 * rsqrt(d) with
-# an rsqrt of its own (one ulp off the port's c). The floors below sit
-# 0.05 under the measured shares.
-GAMMA_SHARES = {0.1: (0.77, 0.65), 0.5: (0.89, 0.93), 1.0: (0.94, 0.94),
-                3.0: (0.80, 0.80)}
-# loggamma: absolute (measured at most 7.7e-6, at alpha 0.1); gamma:
-# relative (measured at most 7.9e-6), and below the smallest normal f32
-# absolute: XLA's CPU flushes a subnormal gamma (alpha 0.1) to zero
-LOGGAMMA_ATOL, GAMMA_RTOL = 2e-5, 2e-5
-GAMMA_ATOL = float(np.finfo(np.float32).tiny)
+# JAX's Marsaglia-Tsang sampler, ported step for step: XLA's log, log1p
+# and rsqrt (c = 1/3 * rsqrt(d)), glibc's powf for the boost below alpha
+# 1, and the flush of a subnormal sample to zero (alpha 0.1).
+GAMMA_ALPHAS = (0.1, 0.5, 1.0, 3.0)
 
 
-@pytest.mark.parametrize("alpha", sorted(GAMMA_SHARES))
+@pytest.mark.parametrize("alpha", GAMMA_ALPHAS)
 @pytest.mark.parametrize("seed,shape", [(0, (200, 62)), (7, (3, 5, 41))])
 def test_gamma_and_loggamma_within_measured_gap(alpha, seed, shape):
+    """No gap is left: both bit-equal at every alpha."""
     jk, tk = _jkey(seed), _tkey(seed)
     want_lg = np.asarray(jax.random.loggamma(jk, alpha, shape))
     got_lg = _np(prng.loggamma(tk, alpha, shape))
     want_g = np.asarray(jax.random.gamma(jk, alpha, shape))
     got_g = _np(prng.gamma(tk, alpha, shape))
     assert got_lg.shape == want_lg.shape == shape
-    share_lg, share_g = GAMMA_SHARES[alpha]
-    assert np.mean(got_lg == want_lg) >= share_lg
-    assert np.mean(got_g == want_g) >= share_g
-    assert np.abs(got_lg - want_lg).max() <= LOGGAMMA_ATOL
-    np.testing.assert_allclose(got_g, want_g, rtol=GAMMA_RTOL,
-                               atol=GAMMA_ATOL)
+    assert np.array_equal(got_lg, want_lg)
+    assert np.array_equal(got_g, want_g)
 
 
 def test_gamma_takes_a_tensor_of_alphas():
@@ -178,33 +168,43 @@ def test_gamma_takes_a_tensor_of_alphas():
     jk, tk = _jkey(3), _tkey(3)
     want = np.asarray(jax.random.gamma(jk, alphas, (40, 5)))
     got = _np(prng.gamma(tk, torch.as_tensor(alphas), (40, 5)))
-    np.testing.assert_allclose(got, want, rtol=GAMMA_RTOL, atol=GAMMA_ATOL)
+    assert np.array_equal(got, want)
     assert np.all(got > 0)
 
 
 @pytest.mark.parametrize("alpha", [0.1, 0.5, 1.0, 3.0])
 def test_dirichlet_and_choice_with_p(alpha):
-    """``dirichlet`` adds XLA's exp and sum order to the gamma gap: rows
-    of probabilities within 1e-6 relative (measured at most 7.7e-6 of the
-    smallest, where alpha is 0.1 and a probability underflows toward 0,
-    so the bound is absolute there: 2e-7; measured 1.2e-7), and
-    about 40% of the entries bit-equal. The labels ``choice`` draws from
-    them, one key a client as the Dirichlet branch draws them, were all
-    equal in every draw measured; held at 99.9%."""
+    """``dirichlet`` is bit-equal (XLA's exp, its sum over the classes in
+    XLA's order: windows of 32 above 32 classes, and the flush of a
+    subnormal probability), and so are the labels ``choice`` draws from
+    it, one key a client as the Dirichlet branch draws them."""
     jk, tk = _jkey(3), _tkey(3)
     n, c, per = 300, 62, 50
     want = np.asarray(jax.random.dirichlet(jk, alpha * jnp.ones((c,)),
                                            (n,)))
     got = _np(prng.dirichlet(tk, torch.full((c,), alpha), (n,)))
+    assert np.array_equal(got, want)
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=2e-7)
     want_y = np.asarray(jax.vmap(
         lambda k, p: jax.random.choice(k, c, (per,), p=p))(
             jax.random.split(jk, n), jnp.asarray(want)))
     got_y = _np(prng.choice(prng.split(tk, n), c, (per,),
                             p=torch.as_tensor(got)))
     assert got_y.shape == (n, per)
-    assert np.mean(got_y == want_y) >= 0.999
+    assert np.array_equal(got_y, want_y)
+
+
+@pytest.mark.parametrize("c", [2, 10, 17, 32, 33, 100, 300])
+def test_dirichlet_sums_in_xla_order(c):
+    """Class counts on both sides of 32, where XLA splits the sum into
+    windows; alpha 0.1 puts subnormal probabilities in the rows."""
+    want = np.asarray(jax.random.dirichlet(_jkey(5), 0.1 * jnp.ones((c,)),
+                                           (64,)))
+    got = _np(prng.dirichlet(_tkey(5), torch.full((c,), 0.1), (64,)))
+    assert np.array_equal(got, want)
+    x = np.random.default_rng(c).standard_normal((5, c)).astype(np.float32)
+    assert np.array_equal(_np(prng.sum_last(torch.from_numpy(x))),
+                          np.asarray(jax.jit(lambda v: jnp.sum(v, -1))(x)))
 
 
 def test_choice_with_p_one_key_is_bit_equal():
@@ -233,6 +233,105 @@ def test_log_matches_xla_bit_for_bit():
     assert np.mean(_np(torch.log(torch.as_tensor(x))) == want) < 0.97
 
 
+# ------------------------------------------- XLA's CPU f32 functions
+#
+# Each case: about 2^20 f32 values, half uniform in bit pattern over the
+# draws' range (so every binade alike) and half over the whole line, the
+# 64 floats on each side of every branch point, and the specials; held
+# bit for bit (signed zeros told apart, NaNs of any payload equal).
+
+def _assert_bit_equal(got: np.ndarray, want: np.ndarray, x: np.ndarray):
+    nan = np.isnan(got) & np.isnan(want)
+    bad = (got.view(np.uint32) != want.view(np.uint32)) & ~nan
+    assert not bad.any(), (int(bad.sum()), x[bad][:5], got[bad][:5],
+                           want[bad][:5])
+
+
+# the reference op of each function of ``xla_samples.FUNCTIONS``
+XLA_FUNCTIONS = {"log1p": jnp.log1p, "exp": jnp.exp, "erf": jax.lax.erf,
+                 "erfc": jax.lax.erfc, "ndtr": jax.scipy.special.ndtr,
+                 "rsqrt": jax.lax.rsqrt, "erf_inv": jax.lax.erf_inv}
+
+
+@pytest.mark.parametrize("name", sorted(xla_samples.FUNCTIONS))
+def test_xla_f32_function_bit_equal(name):
+    x = xla_samples.sample(name)
+    want = np.asarray(jax.jit(XLA_FUNCTIONS[name])(x))
+    port = getattr(prng, xla_samples.FUNCTIONS[name][0])
+    _assert_bit_equal(_np(port(torch.from_numpy(x))), want, x)
+
+
+@pytest.mark.parametrize("exponent", [None, 2.0, 10.0, 1.0 / 0.3])
+def test_powf_bit_equal(exponent):
+    """glibc's ``powf`` (the ``pow`` XLA's CPU code calls) on the gamma
+    boost's domain: x in (0, 1], its ``1 / alpha`` exponent."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([xla_samples.bits_between(1e-30, 1.0, 1 << 19, rng),
+                        1.0 - rng.random(1 << 19).astype(np.float32)])
+    y = (np.full_like(x, exponent) if exponent is not None
+         else (1.0 / rng.uniform(0.01, 1.0, x.size)).astype(np.float32))
+    want = np.asarray(jax.jit(jnp.power)(x, y))
+    got = _np(prng._powf(torch.from_numpy(x), torch.from_numpy(y)))
+    _assert_bit_equal(got, want, x)
+
+
+def _fma_exact(a, b, c) -> np.float32:
+    """a * b + c rounded once to f32 (to nearest, ties to even)."""
+    from fractions import Fraction
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(v))
+    near = [np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf))]
+    return min(near, key=lambda q: (abs(Fraction(float(q)) - v),
+                                    int(np.float32(q).view(np.uint32)) & 1))
+
+
+def test_fma_f32_rounds_once_where_f64_lands_on_a_midpoint():
+    """The last step of erf's denominator at x = 3.461441e-4: q x^2 + 1
+    lies 1.3e-18 above 1 + 2^-24, so the f64 sum is the midpoint itself
+    and rounds to 1 (ties to even) where the FMA gives 1 + 2^-23. XLA's
+    erf there is the FMA's (and ``_fma_f64``, the draws' form, is not)."""
+    q = np.uint32(1056879690).view(np.float32)
+    x2 = np.uint32(872457907).view(np.float32)
+    got = prng.fma_f32(torch.tensor([q]), float(x2), 1.0)
+    assert got.item() == float(_fma_exact(q, x2, 1.0)) == 1.0 + 2.0 ** -23
+    assert prng._fma_f64(torch.tensor([q]), float(x2), 1.0).item() == 1.0
+    x = np.uint32(968194733).view(np.float32)
+    assert np.array_equal(_np(prng.erf_f32(torch.tensor([x, -x]))),
+                          np.asarray(jax.jit(jax.lax.erf)(
+                              np.array([x, -x], np.float32))))
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal(400).astype(np.float32)
+    b = (rng.standard_normal(400) * 2.0 ** rng.integers(-30, 30, 400)
+         ).astype(np.float32)
+    c = rng.standard_normal(400).astype(np.float32)
+    got = _np(prng.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(c)))
+    want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    assert np.array_equal(got, want)
+
+
+def test_markov_latent_step_is_the_jitted_reference_s():
+    """``rho z + sqrt(1 - rho^2) xi`` as the reference's jitted round
+    computes it: the constant folded into the draw (``normal_scaled``),
+    rho z contracted into an FMA."""
+    from repro.configs import ChannelConfig as JChannel
+    from repro.core.channels import markov as jmarkov
+    from repro_torch.configs import ChannelConfig
+    from repro_torch.core.channels import markov
+    n, key = 20_000, _jkey(7)
+    carry = np.asarray(jax.random.normal(_jkey(5), (n,)))
+    sel = np.arange(8)
+    want = jax.jit(lambda c, k: jmarkov._step(
+        c, JChannel(model="markov_fading", markov_rho=0.9), 8,
+        jnp.asarray(sel), k, k)[0])(jnp.asarray(carry), key)
+    got, _ = markov._step(torch.from_numpy(carry.copy()),
+                          ChannelConfig(model="markov_fading",
+                                        markov_rho=0.9), 8,
+                          torch.from_numpy(sel), _tkey(7), _tkey(7))
+    assert np.array_equal(_np(got), np.asarray(want))
+
+
 def test_batched_keys_draw_as_vmap():
     """A batch of keys draws one row a key, as ``jax.vmap`` does."""
     jk, tk = _jkey(11), _tkey(11)
@@ -249,7 +348,7 @@ def test_batched_keys_draw_as_vmap():
     want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (9,)))(jks))
     got = _np(prng.normal(tks, (9,)))
     assert got.shape == (6, 9)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.array_equal(got, want)
 
 
 BF16_SAMPLERS = ("uniform", "normal", "gumbel")

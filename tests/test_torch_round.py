@@ -8,10 +8,11 @@ The golden problem is ``tools/update_goldens.py``'s: BENCH_MLP, N = 20,
 r = 4, tau = 2, 2 rounds, init key 1, run key 2; the port draws its data
 and init from the same keys with its own threefry.
 
-Tolerance: rtol 2e-6 on every digest. The gap is set by the ``normal``
-and ``exponential`` draws (a few ulp on a few percent of the values,
-tests/test_torch_prng.py) and f32 sums in another order; measured at
-most 5.1e-7 (the round-1 energy).
+Tolerance: the committed digests at ``GOLDEN_RTOL`` = 1e-6, the
+reference's own (``tests/test_golden.py``); live reference runs at
+``RTOL`` = 2e-6. The draws are bit-equal (tests/test_torch_prng.py), so
+what is left is f32 sums in another order (local training's matmuls and
+reductions).
 """
 import dataclasses
 import json
@@ -41,6 +42,7 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.tree import ravel  # noqa: E402
 
 RTOL = 2e-6
+GOLDEN_RTOL = 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -120,16 +122,16 @@ def _jax_trainer(**cfg_kw):
     return trainer, state, x, y
 
 
-def _assert_close(path, got, want):
+def _assert_close(path, got, want, rtol=RTOL):
     if isinstance(want, dict):
         for k in want:
-            _assert_close(f"{path}.{k}", got[k], want[k])
+            _assert_close(f"{path}.{k}", got[k], want[k], rtol)
     elif isinstance(want, list):
         assert len(got) == len(want), path
         for i, (g, w) in enumerate(zip(got, want)):
-            _assert_close(f"{path}[{i}]", g, w)
+            _assert_close(f"{path}[{i}]", g, w, rtol)
     elif isinstance(want, float):
-        assert got == pytest.approx(want, rel=RTOL, abs=1e-12), \
+        assert got == pytest.approx(want, rel=rtol, abs=1e-12), \
             f"{path}: reference={want!r} port={got!r}"
     else:
         assert got == want, f"{path}: reference={want!r} port={got!r}"
@@ -146,7 +148,7 @@ def test_run_reproduces_committed_golden_rows(case, fused):
                                on_round=lambda t, m: seen.append(t))
     assert seen == list(range(ug.ROUNDS))
     got = _port_digest(end, metrics)
-    _assert_close(case, got, {k: golden[k] for k in got})
+    _assert_close(case, got, {k: golden[k] for k in got}, GOLDEN_RTOL)
 
 
 @pytest.mark.parametrize("clip", [0.25, 0.1])

@@ -4,8 +4,8 @@ reference on the CPU.
 - The 22 single-device ``chan_*`` and ``comp_*`` golden rows, each built
   from ``tools/update_goldens.py``'s ``_cases()``, through the port's
   ``Trainer.run`` against the committed digests at the rtol 2e-6 of
-  ``tests/test_torch_round.py`` (measured at most 5.9e-7: the round-1
-  energy of ``chan_dropout-fused``).
+  ``tests/test_torch_round.py``'s ``GOLDEN_RTOL`` of 1e-6 (measured at
+  most 5.9e-7: the round-1 energy of ``chan_dropout-fused``).
 - Live reference runs (under ``jax.threefry_partitionable(False)``) for
   what no golden row holds: dropout under ``fedavg`` and ``dp_fedavg``
   with rounds where every client drops, ``markov_fading`` under
@@ -16,19 +16,19 @@ reference on the CPU.
   antenna gains, the dropout mask, the unfused aggregate's noise add, the
   ``decode`` hook, the registries.
 
-What is bit-exact and what is not: the dropout mask and the Markov
-latent's AR(1) step are bit-equal where the ``normal`` draw is (about 99%
-of values, ``tests/test_torch_prng.py``). The Markov gains use
-``torch.special.ndtr`` and ``torch.log1p`` where XLA has its own
-polynomials: about 61% of gains are bit-equal and the rest lie within
-2.9e-6 of the reference's (``test_markov_gains_close_to_reference``),
-while the golden rows' digests stay within 4.7e-7 of theirs, so XLA's
-ops were not ported. ``top_k_ef`` and ``threshold`` select by magnitude,
-so an ulp in ``Delta_hat`` can reorder two magnitudes that the reference
-has equal: the unfused aggregate adds the receiver noise as XLA's CPU
-backend does (``prng.normal_fma``), and with it ``comp_top_k_ef-unfused``
-went from 2.7e-5 (a tie at coordinates 14546 and 21929 broken the other
-way in round 1) to 5.1e-7.
+What is bit-exact: the dropout mask, the Markov latent's AR(1) step (the
+constant folded into the draw and ``rho z`` contracted into an FMA, as
+the reference's jitted round computes it) and its gains (XLA's ``ndtr``
+and ``log1p``, ``repro_torch.prng``), and the MIMO antenna gains and
+their combine (summed in XLA's order), so a Markov run's carried latent
+equals the reference's bit for bit. What is left between the digests is
+f32 sums in another order in local training. ``top_k_ef`` and
+``threshold`` select by magnitude, so an ulp in ``Delta_hat`` can
+reorder two magnitudes that the reference has equal: the unfused
+aggregate adds the receiver noise as XLA's CPU backend does
+(``prng.normal_fma``), and with it ``comp_top_k_ef-unfused`` went from
+2.7e-5 (a tie at coordinates 14546 and 21929 broken the other way in
+round 1) to 5.1e-7.
 """
 import dataclasses
 import json
@@ -41,7 +41,8 @@ import pytest
 # ruff: noqa: E402
 torch = pytest.importorskip("torch")
 
-from test_torch_round import (RTOL, _assert_close, _jax_digest,
+from test_torch_round import (GOLDEN_RTOL, RTOL, _assert_close,
+                              _jax_digest,
                               _jax_trainer, _port_digest, _port_problem,
                               _port_trainer)
 from test_torch_streamed import _assert_bit_equal
@@ -94,7 +95,8 @@ def test_run_reproduces_committed_scenario_rows(case):
     trainer, state, x, y = _port_trainer(**_port_kw(cfg_kw, chan_kw))
     end, metrics = trainer.run(state, x, y, rounds=ug.ROUNDS)
     got = _port_digest(end, metrics)
-    _assert_close(case, got, {k: golden[k] for k in got})
+    _assert_close(case, got, {k: golden[k] for k in got},
+                  GOLDEN_RTOL)
     stateful = chan_kw.get("model") == "markov_fading"
     assert (end.chan is not None) == stateful
     if compressors.carry_required(trainer.cfg):
@@ -133,8 +135,7 @@ def test_markov_with_imperfect_csi_matches_reference():
         ug.ROUNDS)
     _assert_close("markov+csi", _port_digest(end, metrics),
                   _jax_digest(jend, jmetrics))
-    np.testing.assert_allclose(end.chan.numpy(), np.asarray(jend.chan),
-                               rtol=0, atol=5e-7)
+    assert np.array_equal(end.chan.numpy(), np.asarray(jend.chan))
 
 
 @pytest.mark.parametrize("backend", ["resident", "streamed"])
@@ -153,7 +154,7 @@ def test_top_k_ef_forces_the_bank_s_residuals(backend):
     assert np.array_equal(got.any(axis=1), seen)
     assert np.array_equal(want.any(axis=1), seen)
     # the updates' own gap: local training sums in another order
-    # (measured 1.1e-6 of max|residual|)
+    # (measured 1.06e-6 of max|residual|, the draws bit-equal)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=RTOL * np.abs(want).max())
     assert np.array_equal(end.bank.counts.cpu().numpy(),
@@ -175,8 +176,7 @@ def test_markov_state_carried_from_jax_continues_as_reference():
     jend, jmetrics = jtrainer.run(j1, jx, jy, rounds=1)
     _assert_close("carried markov", _port_digest(end, metrics),
                   _jax_digest(jend, jmetrics))
-    np.testing.assert_allclose(end.chan.numpy(), np.asarray(jend.chan),
-                               rtol=0, atol=5e-7)
+    assert np.array_equal(end.chan.numpy(), np.asarray(jend.chan))
 
 
 @pytest.mark.parametrize("overrides", [
@@ -242,9 +242,9 @@ def test_top_k_ties_match_reference(name, x, k):
 @pytest.mark.parametrize("sigma0", [1.0, 8.0 ** 0.5])
 def test_unfused_receive_matches_xla_s_fused_noise_add(sigma0):
     """The reference's jitted ``y = einsum + sigma0 * normal`` on XLA's
-    CPU backend: the port's ``prng.normal_fma`` gives the same y on every
-    value whose ``normal`` draw is bit-equal (about 99%; the superposition
-    plus a separately rounded noise gave about 73%)."""
+    CPU backend: the port's ``prng.normal_fma`` gives the same y, bit for
+    bit (the superposition plus a separately rounded noise gave about
+    73%)."""
     from repro.core import aggregation as jagg
     from repro_torch.core import aggregation
     rng = np.random.default_rng(1)
@@ -260,9 +260,7 @@ def test_unfused_receive_matches_xla_s_fused_noise_add(sigma0):
         torch.from_numpy(u), torch.from_numpy(idx).long(),
         torch.from_numpy(g), torch.tensor(beta), prng.PRNGKey(5, "cpu"),
         d=d, sigma0=sigma0, r=r)[2].numpy()
-    assert np.mean(got == want) > 0.98
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=1e-6 * np.abs(want).max())
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cold_start_supports_are_rand_k():
@@ -326,22 +324,24 @@ def test_schedules_match_reference(sched):
 def test_antenna_gains_and_mrc_match_reference():
     cfg = ChannelConfig(model="mimo_mrc", num_antennas=4)
     key = prng.PRNGKey(11, "cpu")
+    jcfg = JChannel(model="mimo_mrc", num_antennas=4)
     ant = mimo.antenna_gains(key, 6, cfg)
     want = np.asarray(jchannels.mimo.antenna_gains(
-        jax.random.PRNGKey(11), 6, JChannel(model="mimo_mrc",
-                                            num_antennas=4)))
+        jax.random.PRNGKey(11), 6, jcfg))
     assert ant.shape == (6, 4)
-    # exponential = -log1p(-u): torch's log1p is an ulp off XLA's at times
-    np.testing.assert_allclose(ant.numpy(), want, rtol=2e-6)
-    assert torch.equal(mimo.combine_mrc(ant), torch.sum(ant, dim=1))
+    assert np.array_equal(ant.numpy(), want)
+    for m in (4, 5, 8, 33):
+        a = prng.uniform(prng.PRNGKey(m, "cpu"), (40, m))
+        assert np.array_equal(
+            mimo.combine_mrc(a).numpy(),
+            np.asarray(jchannels.mimo.combine_mrc(jnp.asarray(a.numpy()))))
     one = ChannelConfig(model="mimo_mrc", num_antennas=1)
     _, cr = mimo._step(None, one, 6, None, key, key)
     _, base = channels.get_channel_model("block_fading").step(
         None, one, 6, None, key, key)
     assert torch.equal(cr.gains, base.gains)
     assert channels.effective_noise_std(cfg) == \
-        jchannels.effective_noise_std(JChannel(model="mimo_mrc",
-                                               num_antennas=4)) == 2.0
+        jchannels.effective_noise_std(jcfg) == 2.0
 
 
 def test_dropout_mask_matches_reference():
@@ -360,16 +360,15 @@ def test_dropout_mask_matches_reference():
 
 
 def test_markov_gains_close_to_reference():
-    """The copula transform on the same latent: within 3e-6 (ndtr and
-    log1p are not XLA's polynomials; measured 2.9e-6, the largest where
-    the gain nears its clip of 5 x the mean)."""
+    """The copula transform on the same latent: bit-equal (XLA's ndtr and
+    log1p), the gains near their clip of 5 x the mean included."""
     cfg = ChannelConfig(model="markov_fading")
     z = np.array(jax.random.normal(jax.random.PRNGKey(0), (20_000,)))
+    z = np.concatenate([z, np.linspace(-6.0, 6.0, 4001, dtype=np.float32)])
     got = markov._gains_from_latent(torch.from_numpy(z), cfg).numpy()
     want = np.asarray(jchannels.markov._gains_from_latent(
         jnp.asarray(z), JChannel(model="markov_fading")))
-    np.testing.assert_allclose(got, want, rtol=3e-6)
-    assert np.mean(got == want) > 0.5
+    assert np.array_equal(got, want)
 
 
 def test_registries():

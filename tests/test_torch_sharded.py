@@ -59,7 +59,8 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.tree import Unravel, ravel, tree_leaves  # noqa: E402
 
 GOLDEN_PATH = os.path.join(ROOT, "tests", "goldens", "golden_digests.json")
-RTOL = 2e-6               # the digests' rtol (tests/test_torch_round.py)
+RTOL = 2e-6               # live runs' rtol (tests/test_torch_round.py)
+GOLDEN_RTOL = 1e-6        # the committed digests' (the reference's own)
 METRIC_KEYS = ("train_loss", "update_norm", "beta", "energy",
                "subcarriers", "eps_round")
 
@@ -280,16 +281,16 @@ def _digest(run):
                        "spends": int(run["ledger"][2])}}
 
 
-def _assert_close(path, got, want):
+def _assert_close(path, got, want, rtol=RTOL):
     if isinstance(want, dict):
         for k in want:
-            _assert_close(f"{path}.{k}", got[k], want[k])
+            _assert_close(f"{path}.{k}", got[k], want[k], rtol)
     elif isinstance(want, list):
         assert len(got) == len(want), path
         for i, (g, w) in enumerate(zip(got, want)):
-            _assert_close(f"{path}[{i}]", g, w)
+            _assert_close(f"{path}[{i}]", g, w, rtol)
     elif isinstance(want, float):
-        assert got == pytest.approx(want, rel=RTOL, abs=1e-12), \
+        assert got == pytest.approx(want, rel=rtol, abs=1e-12), \
             f"{path}: want {want!r}, got {got!r}"
     else:
         assert got == want, f"{path}: want {want!r}, got {got!r}"
@@ -331,7 +332,8 @@ def test_sharded_golden_rows_on_four_ranks(worlds, case):
     ranks = worlds[4]
     assert ranks[0][case]["shards"] == 4
     got = _digest(ranks[0][case])
-    _assert_close(case, got, {k: golden[k] for k in got})
+    _assert_close(case, got, {k: golden[k] for k in got},
+                  GOLDEN_RTOL)
     _assert_ranks_bit_equal(ranks, case)
 
 
@@ -397,8 +399,10 @@ def test_production_aggregate_over_two_ranks(worlds):
 def test_production_aggregate_over_two_ranks_matches_reference(worlds):
     """The 2-rank all-reduce against the reference's ``axis_name`` route:
     its ``psum`` over the two clients' updates under ``jax.vmap``, with
-    the same masks and noise key, within the ``normal`` gap the
-    single-client route is held to (tests/test_torch_llm_train.py)."""
+    the same masks and noise key, to rounding: the draws are bit-equal,
+    but the group route adds the noise after the all-reduce, where XLA
+    contracts the beta product into the noise add
+    (tests/test_torch_llm_train.py)."""
     import jax
     import jax.numpy as jnp
     from repro.core import aggregation as jagg
