@@ -7,6 +7,8 @@
                                          # zamba2-2.7b prefill's times
     python3 chip_smoke.py --time-rows    # only the row kernels' times
                                          # and the kernel_api chain
+    python3 chip_smoke.py --time-transmit  # only the PFELS transmit
+                                         # pair's times
     python3 chip_smoke.py --sharded      # only the main path, the
                                          # sharded and multi-pod phases
                                          # and the per-shard kernels
@@ -44,7 +46,12 @@ Phases, each printing one JSON line:
    PFELS pair at r = 32, d = 9,222,858, also with M = 4 and M = 8
    antenna gains and 8 of the 32 clients dropped (the scenarios'
    inputs), and at r = 8 and r = 1 with zero noise (a rank's call in the
-   sharded cohort); ``ssd_scan`` at small shapes and
+   sharded cohort), each warm and cold (L2 flushed) beside
+   ``vector_norm(u, dim=1)``, with the device kernels of one call held
+   at 1; untimed at d = 1, 2 and 3 mod 4, at r = 128 and at FEMNIST's
+   d = 11,189,886; one client's ``client_sumsq`` bit-equal alone, in row
+   5 of 8 and in row 21 of 32; the pair's ``ptxas`` registers and
+   spills; ``ssd_scan`` at small shapes and
    ragged chunks (1 to 100 rows) in f32 (CUDA cores) and bf16 (tensor
    cores; also on misaligned views, which must equal their aligned
    copies, and at P = N = 128), the bf16 route held to the bound derived
@@ -240,11 +247,22 @@ and prints no result line. Like ``--time-ssd`` it uses only what every
 tree of the port with the kernels' ``work`` formulas has, for the same
 turns with a parent commit.
 
+``--time-transmit`` runs the device phase and then only times the PFELS
+transmit pair at its six timed shapes (r = 32 at M = 1 with support
+shares 0.3 and 1, at M = 4 and 8 with 8 clients dropped; r = 8 and 1
+with zero noise), warm and cold L2, beside ``vector_norm(u, dim=1)``,
+with the device kernels of one call and the kernels' ``ptxas``
+registers when this process built the library, and prints no result
+line. Like ``--time-ssd`` it uses only what every tree of the port has
+(the two wrappers and their ``*_work`` formulas), for the same turns with
+a parent commit.
+
 Then the kernel summary line (the flash row with its times at every
 timed shape under ``by_shape``; the serving kernels' launches summed over
 the serve runs, each run's under ``launches_by_path``; the PFELS pair's
 main-path launches beside the sharded phase's, summed over the ranks,
-under ``launches_by_path``, and its per-shard times under ``per_shard``;
+under ``launches_by_path``, its per-shard times under ``per_shard``, warm
+and cold (``cold_ms``) in each row, and its ``ptxas`` registers;
 ``clip_norm``'s multi-pod and granite-moe-3b-a800m step's launches), the
 whole run's seconds, the ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -259,6 +277,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -412,6 +431,86 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+# the pair's timed shapes: (label, r, d, M, dropped, support share,
+# zero noise): the main path's, WFL-P's full support, the scenarios'
+# antennas with 8 clients dropped, and the sharded cohort's per-shard
+# calls (8 clients a rank and one)
+TRANSMIT_TIMED = (
+    ("main_path", MAIN_R, MAIN_D, 1, 0, 0.3, False),
+    ("full_support", MAIN_R, MAIN_D, 1, 0, 1.0, False),
+    ("antennas_4_dropped_8", MAIN_R, MAIN_D, 4, 8, 0.3, False),
+    ("antennas_8_dropped_8", MAIN_R, MAIN_D, 8, 8, 0.3, False),
+    ("per_shard_r8", MAIN_R // SHARDED_WORLD, MAIN_D, 1, 0, 0.3, True),
+    ("per_shard_r1", 1, MAIN_D, 1, 0, 0.3, True))
+
+
+def check_transmit_timed(labels=None):
+    """``check_kernels_at``, timed, at the ``TRANSMIT_TIMED`` shapes (those
+    in ``labels``, or all): their summaries by label."""
+    return {label: check_kernels_at(r, d, m_ant, seed=7 + i, dropped=dropped,
+                                    timed=True, density=share,
+                                    zero_noise=zero)
+            for i, (label, r, d, m_ant, dropped, share, zero)
+            in enumerate(TRANSMIT_TIMED)
+            if labels is None or label in labels}
+
+
+# the device kernels one call of each of the pair runs (csrc/
+# pfels_transmit.cu: one launch, the last block sums the partials)
+TRANSMIT_DEVICE_KERNELS_PER_CALL = 1
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """The host's microseconds a call of ``fn`` takes to return (the
+    launch enqueued, not waited for), over ``reps`` calls in a row."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def _transmit_times(u, mask, z, gains, tx, txm, plain=False):
+    """The pair's times at one shape, warm (``time_ms``: the host's time
+    before the launch included) and cold (``cold_ms``: the device's
+    time, L2 flushed by a write, whose dirty lines the call may write
+    back; ``cold_ms_clean_l2``: flushed by a read), and the host's time
+    a call, beside ``torch.linalg.vector_norm(u, dim=1)`` and
+    (``plain``) the plain versions warm; the bounds and the device kernels
+    of one call. It uses only the wrappers and the ``*_work`` formulas,
+    which every tree of the port has."""
+    import torch
+    from repro_torch.kernels.pfels_transmit import kernel, ref
+    r, d = u.shape
+    args = (u, mask, z, gains, tx, txm)
+    fns = {"client_sumsq": lambda: kernel.client_sumsq(u),
+           "client_sumsq_library": lambda: torch.linalg.vector_norm(u,
+                                                                    dim=1),
+           "fused_combine": lambda: kernel.fused_combine(*args)}
+    if plain:
+        fns["client_sumsq_plain"] = lambda: ref.client_sumsq_ref(u)
+        fns["fused_combine_plain"] = lambda: ref.fused_combine_ref(*args)
+    work = {"client_sumsq": kernel.sumsq_work(r, d),
+            "fused_combine": kernel.combine_work(r, d, gains.shape[1])}
+    bounds = {k: bound_ms(*w) for k, w in work.items()}
+    timed = ("client_sumsq", "client_sumsq_library", "fused_combine")
+    return {
+        "times_ms": {k: time_ms(f) for k, f in fns.items()},
+        "cold_ms": {k: cold_ms(fns[k]) for k in timed},
+        "cold_ms_clean_l2": {k: cold_ms(fns[k], read=True) for k in timed},
+        "host_us_per_call": {k: host_us(fns[k]) for k in timed},
+        "bound_ms": {k: b[0] for k, b in bounds.items()},
+        "bound_by": {k: b[1] for k, b in bounds.items()},
+        "bytes": {k: w[0] for k, w in work.items()},
+        "device_kernels_per_call": {
+            k: device_kernels(fns[k]) for k in ("client_sumsq",
+                                                "fused_combine")}}
+
+
 def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3,
                      zero_noise=False):
     """One shape: both kernels against their plain versions, twice for
@@ -464,44 +563,92 @@ def check_kernels_at(r, d, m_ant, seed, dropped, timed, density=0.3,
 
     summary = {}
     if timed:
-        b_sumsq, op_sumsq = kernel.sumsq_work(r, d)
-        b_comb, op_comb = kernel.combine_work(r, d, m_ant)
-        sumsq_bound, sumsq_by = bound_ms(b_sumsq, op_sumsq)
-        comb_bound, comb_by = bound_ms(b_comb, op_comb)
-        times = {
-            "client_sumsq": time_ms(lambda: kernel.client_sumsq(u)),
-            "client_sumsq_plain": time_ms(lambda: ref.client_sumsq_ref(u)),
-            "client_sumsq_library": time_ms(
-                lambda: torch.linalg.vector_norm(u, dim=1)),
-            "fused_combine": time_ms(lambda: kernel.fused_combine(
-                u, mask, z, gains, tx, txm)),
-            "fused_combine_plain": time_ms(lambda: ref.fused_combine_ref(
-                u, mask, z, gains, tx, txm)),
-        }
-        line["times_ms"] = times
-        line["bound_ms"] = {"client_sumsq": sumsq_bound,
-                            "fused_combine": comb_bound}
-        line["bytes"] = {"client_sumsq": b_sumsq, "fused_combine": b_comb}
+        t = _transmit_times(u, mask, z, gains, tx, txm, plain=True)
+        line.update(t)
+        dk = t["device_kernels_per_call"]
+        for name in ("client_sumsq", "fused_combine"):
+            if dk[name] != TRANSMIT_DEVICE_KERNELS_PER_CALL:
+                failures.append(f"{name} ran {dk[name]} device kernels a "
+                                f"call, expected "
+                                f"{TRANSMIT_DEVICE_KERNELS_PER_CALL}")
+        times, cold = t["times_ms"], t["cold_ms"]
         summary = {
             "client_sumsq": {
                 "max_abs_err": line["client_sumsq"]["max_abs_err"],
                 "ms": times["client_sumsq"],
                 "plain_ms": times["client_sumsq_plain"],
-                "bound_ms": sumsq_bound, "bound_by": sumsq_by,
-                "library_ms": times["client_sumsq_library"]},
+                "bound_ms": t["bound_ms"]["client_sumsq"],
+                "bound_by": t["bound_by"]["client_sumsq"],
+                "library_ms": times["client_sumsq_library"],
+                "cold_ms": cold["client_sumsq"],
+                "cold_ms_clean_l2": t["cold_ms_clean_l2"]["client_sumsq"],
+                "library_cold_ms": cold["client_sumsq_library"],
+                "device_kernels_per_call": dk["client_sumsq"]},
             "fused_combine": {
                 "max_abs_err": line["fused_combine"]["y_max_abs_err"],
                 "ms": times["fused_combine"],
                 "plain_ms": times["fused_combine_plain"],
-                "bound_ms": comb_bound, "bound_by": comb_by,
+                "bound_ms": t["bound_ms"]["fused_combine"],
+                "bound_by": t["bound_by"]["fused_combine"],
                 # no single PyTorch call computes y and E together
-                "library_ms": None}}
+                "library_ms": None,
+                "cold_ms": cold["fused_combine"],
+                "cold_ms_clean_l2": t["cold_ms_clean_l2"]["fused_combine"],
+                "device_kernels_per_call": dk["fused_combine"]}}
     emit(line)
     del u, mask, z, gains, tx, txm
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
     return summary
+
+
+# where one client's row lies in the batches of the row-independence
+# check: alone, row 5 of a shard of 8, row 21 of the main path's 32 (at
+# d = 2 mod 4 rows 5 and 21 start 8 bytes off 16-byte alignment, at odd
+# d each at its own offset)
+ROW_PLACES = ((1, 0), (8, 5), (32, 21))
+# FEMNIST's ResNet-18 update: d = 2 mod 4, like VGG-11's
+FEMNIST_D = 11_189_886
+
+
+def check_row_independence(d, seed):
+    """One client's ``client_sumsq`` at each place of ``ROW_PLACES``, the
+    other rows random: the same bits everywhere (its order of sums
+    depends only on its values and d), and within 1e-5 of the plain
+    version."""
+    import torch
+    from repro_torch.kernels.pfels_transmit import kernel, ref
+    x = _randn((d,), seed, scale=0.01)
+    sums = []
+    for r, row in ROW_PLACES:
+        u = _randn((r, d), seed + 1 + r, scale=0.01)
+        u[row] = x
+        sums.append(kernel.client_sumsq(u)[row].item())
+        del u
+    torch.cuda.empty_cache()
+    plain = ref.client_sumsq_ref(x[None])[0].item()
+    bits = [struct.unpack("<I", struct.pack("<f", v))[0] for v in sums]
+    line = {"phase": "kernels", "check": "client_sumsq row independence",
+            "d": d, "places_r_row": ROW_PLACES, "sums": sums,
+            "bits": [f"{b:08x}" for b in bits],
+            "bit_equal": len(set(bits)) == 1,
+            "rel_err_vs_plain": abs(sums[0] - plain) / abs(plain)}
+    emit(line)
+    if not line["bit_equal"]:
+        raise AssertionError(f"client_sumsq at d={d}: one client's sum "
+                             f"differs with its row: {line['bits']}")
+    if not line["rel_err_vs_plain"] <= 1e-5:
+        raise AssertionError(f"client_sumsq at d={d} disagrees with its "
+                             f"plain version")
+
+
+def transmit_ptxas():
+    """Registers and spills of the pair's kernels, by kernel name (the
+    first design's names too, for a parent tree)."""
+    return _ptxas("pfels_transmit",
+                  r"\d(client_sumsq_kernel|fused_combine_kernel|"
+                  r"sumsq_partial_kernel|sum_rows_kernel|combine_kernel)E")
 
 
 # ssd_scan: (B, S, H, P, N, chunk) at the prefills of zamba2-2.7b and
@@ -960,9 +1107,31 @@ def _misaligned(t):
 
 
 def device_kernels(fn) -> int:
-    """Kernels, copies and fills the card runs for one call of ``fn``,
-    counted by ``torch.profiler``."""
-    return sum(c for _, c, _ in _profiled(fn)[1])
+    """Kernels, copies and fills that one call of ``fn`` enqueues on the
+    card: the nodes of a CUDA graph captured from the call. Nothing runs
+    in the capture, and unlike ``torch.profiler``'s count (which has
+    missed ``clip_norm``'s cooperative launch after other sessions) this
+    one does not depend on what ran before it. ``fn`` runs once first on
+    the capturing stream, so that what a wrapper keeps for each stream
+    (the transmit pair's ticket counter) exists before the capture."""
+    import ctypes
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    graph.reset()
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {err}")
+    return n.value
 
 
 def check_clip_at(rows, dtype_name, seed, timed, misaligned=False):
@@ -1306,28 +1475,28 @@ def check_row_kernels():
 
 
 def phase_kernels():
+    # ragged small shapes; d = 1, 2 and 3 mod 4 at r = 3 (rows at every
+    # offset from 16-byte alignment), r = 128 (coefficients past one
+    # warp), and FEMNIST's ResNet-18 at r = 32
     for r, d, m_ant, dropped in ((1, 4100, 4, 0), (3, 4100, 4, 1),
-                                 (4, 26_122, 1, 0)):
+                                 (4, 26_122, 1, 0), (3, 4101, 4, 1),
+                                 (3, 4102, 4, 1), (3, 4103, 1, 0),
+                                 (128, 100_003, 4, 16),
+                                 (MAIN_R, FEMNIST_D, 1, 0)):
         check_kernels_at(r, d, m_ant, seed=r, dropped=dropped, timed=False)
-    summary = check_kernels_at(MAIN_R, MAIN_D, 1, seed=7, dropped=0,
-                               timed=True)
-    # the full support of WFL-P and WFL-PDP (k = d): the same bytes
-    check_kernels_at(MAIN_R, MAIN_D, 1, seed=8, dropped=0, timed=True,
-                     density=1.0)
-    # the scenarios' inputs: mimo_mrc's (r, M) antenna gains, with 8 of
-    # the 32 clients dropped as under the dropout channel
-    for m_ant in (4, 8):
-        check_kernels_at(MAIN_R, MAIN_D, m_ant, seed=8 + m_ant, dropped=8,
-                         timed=True)
-    # the sharded cohort's per-shard calls: r / 4 = 8 clients a rank at
-    # the main path's width, and one client a rank, with zero noise
+    for i, d in enumerate((MAIN_D, 4101)):
+        check_row_independence(d, seed=40 + i)
+    ptxas = transmit_ptxas()
+    emit({"phase": "kernels", "what": "pfels_transmit ptxas",
+          "ptxas": ptxas})
+    timed = check_transmit_timed()
+    summary = timed["main_path"]
     for name in ("client_sumsq", "fused_combine"):
-        summary[name]["per_shard"] = []
-    for r_shard in (MAIN_R // SHARDED_WORLD, 1):
-        row = check_kernels_at(r_shard, MAIN_D, 1, seed=20 + r_shard,
-                               dropped=0, timed=True, zero_noise=True)
-        for name in ("client_sumsq", "fused_combine"):
-            summary[name]["per_shard"].append({"r": r_shard, **row[name]})
+        summary[name]["per_shard"] = [
+            {"r": r, **timed[label][name]}
+            for label, r, *_ in TRANSMIT_TIMED if label.startswith("per_")]
+    for name in ("client_sumsq", "fused_combine"):
+        summary[name]["ptxas"] = ptxas.get(f"{name}_kernel")
     summary["ssd_scan"] = check_ssd_kernels()
     for i, shape in enumerate(FLASH_SMALL):
         for dtype in ("float32", "bfloat16"):
@@ -1450,6 +1619,10 @@ def profile_serve(arch: str = "zamba2-2.7b", batch: int = 8,
     return pre, warm, peak
 
 
+# the device memory one round of the main path may leave allocated
+ROUND_GROWTH_LIMIT = 2 ** 20
+
+
 def phase_main_path(profile: bool):
     import torch
     from repro_torch import prng
@@ -1481,10 +1654,12 @@ def phase_main_path(profile: bool):
     torch.cuda.reset_peak_memory_stats()
 
     marks = [time.perf_counter()]
+    allocated = []
 
     def on_round(t, metrics):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        allocated.append(torch.cuda.memory_allocated())
 
     kernel.reset_launch_counts()
     end, metrics = trainer.run(state, x, y, rounds=rounds, on_round=on_round)
@@ -1503,7 +1678,9 @@ def phase_main_path(profile: bool):
             "data_bytes": x.numel() * x.element_size(),
             "setup_s": setup_s, "rounds": rounds,
             "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
-            "peak_memory_bytes": peak, "launches": launches,
+            "peak_memory_bytes": peak,
+            "allocated_bytes_after_round": allocated,
+            "launches": launches,
             "train_loss": m["train_loss"], "beta": m["beta"],
             "energy": m["energy"], "eps_round": m["eps_round"],
             "update_norm": m["update_norm"],
@@ -1521,6 +1698,11 @@ def phase_main_path(profile: bool):
         failures.append("non-finite metric")
     if not eps_ok:
         failures.append("eps_round above the per-round budget")
+    # what a round leaves allocated is its metrics (a few scalars), not
+    # a d-sized buffer: a run of the default 2000 rounds must fit
+    if allocated[-1] - allocated[-2] >= ROUND_GROWTH_LIMIT:
+        failures.append(f"a round left {allocated[-1] - allocated[-2]} "
+                        f"bytes allocated")
     if failures:
         raise AssertionError("; ".join(failures))
     if profile:
@@ -2639,8 +2821,7 @@ def phase_conv_parity():
 # ------------------------------------------------ the paper's second model
 
 # kernel names of csrc/pfels_transmit.cu as the profiler shows them
-TRANSMIT_KERNEL_NAMES = ("sumsq_partial_kernel", "sum_rows_kernel",
-                         "combine_kernel")
+TRANSMIT_KERNEL_NAMES = ("client_sumsq_kernel", "fused_combine_kernel")
 
 
 def round_split(prof):
@@ -4156,6 +4337,27 @@ def phase_row_timing():
         phase_kernel_api()
 
 
+def phase_transmit_timing():
+    """``--time-transmit``: the pair alone at ``TRANSMIT_TIMED``, warm and
+    cold, beside ``vector_norm(u, dim=1)``, with the device kernels of one
+    call and the kernels' registers. It uses only what every tree of the
+    port has, so a parent commit is measured by copying this script into
+    its checkout and running it there and here in turns, in one call."""
+    import torch
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build(["pfels_transmit"])
+    emit({"phase": "transmit_timing", "tree": ROOT,
+          "build_s": time.perf_counter() - t0, "ptxas": transmit_ptxas()})
+    for i, (label, r, d, m_ant, dropped, share, zero) in enumerate(
+            TRANSMIT_TIMED):
+        args = _kernel_inputs(r, d, m_ant, 7 + i, dropped, share, zero)
+        emit({"phase": "transmit_timing", "tree": ROOT, "shape": label,
+              "r": r, "d": d, "M": m_ant, **_transmit_times(*args)})
+        del args
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4180,6 +4382,16 @@ def main(argv=None) -> int:
     ap.add_argument("--llm-train", action="store_true",
                     help="only the build, dryrun and llm_train phases (no "
                          "result line): the comparison with a parent tree")
+    ap.add_argument("--time-transmit", action="store_true",
+                    help="only time the PFELS transmit pair warm and cold "
+                         "at its main-path and per-shard shapes beside "
+                         "vector_norm (no result line): the comparison "
+                         "with a parent tree")
+    ap.add_argument("--time-rounds", action="store_true",
+                    help="only build the transmit pair and run the main "
+                         "path's 3 rounds and one profiled round (no "
+                         "result line): the comparison with a parent "
+                         "tree")
     ap.add_argument("--time-rows", action="store_true",
                     help="only time the three row kernels at the VGG-11 "
                          "shapes and run the kernel_api chain (no result "
@@ -4195,6 +4407,16 @@ def main(argv=None) -> int:
     smi = phase_device()
     if args.time_ssd:
         phase_ssd_timing()
+        print(smi, flush=True)
+        return 0
+    if args.time_transmit:
+        phase_transmit_timing()
+        print(smi, flush=True)
+        return 0
+    if args.time_rounds:
+        from repro_torch.kernels import _build
+        _build.build(["pfels_transmit"])
+        phase_main_path(profile=True)
         print(smi, flush=True)
         return 0
     if args.time_rows:
@@ -4213,9 +4435,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     if args.sharded:
-        for r_shard in (MAIN_R // SHARDED_WORLD, 1):
-            check_kernels_at(r_shard, MAIN_D, 1, seed=20 + r_shard,
-                             dropped=0, timed=True, zero_noise=True)
+        check_transmit_timed(("per_shard_r8", "per_shard_r1"))
         _, main_info = phase_main_path(False)
         phase_multi_pod()
         phase_sharded(main_info, yardstick=True)

@@ -8,29 +8,43 @@ the plain version (``ref.py``); a CUDA tensor launches the kernel or
 raises; a ``meta`` tensor gets the kernel's outputs as meta tensors and
 charges the active ``launch.op_cost`` counter with the kernel's work
 (``sumsq_work``, ``combine_work``; the CUDA launch charges it too). It
-checks device, dtype (f32), shape and contiguity, allocates outputs and
-scratch with ``torch.empty``, launches on the current stream, raises if
-the launch reports an error, and adds one to its entry in ``LAUNCHES``.
+checks device, dtype (f32), shape and contiguity, allocates the outputs
+and the partial sums (``client_sumsq``: one ``torch.empty``;
+``fused_combine``: y, and the energy with the partials in a small buffer
+of their own, so that an energy a caller keeps, as ``Trainer.run`` keeps
+every round's metrics, does not hold y's storage), makes one launch on
+the tensor's device and its current stream, raises if the launch reports
+an error, and adds one to its entry in ``LAUNCHES``. The library's tile
+widths and grids are asked once for each device; the launches' two
+counters (see the ``.cu`` header) are made once for each device and
+stream. The CUDA route is kept short on the host, since at one client a
+rank the kernels run for tens of microseconds.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._route import route
+from repro_torch.kernels._route import current_stream, route
 from repro_torch.kernels.pfels_transmit import ref
 from repro_torch.launch import op_cost
 
 SOURCE = "pfels_transmit"
-# columns of one client_sumsq block (256 threads x 32 columns)
-SUMSQ_CHUNK = 8192
 
 LAUNCHES: Dict[str, int] = {"client_sumsq": 0, "fused_combine": 0}
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_LIB: Optional[ctypes.CDLL] = None
+# (sumsq tile columns, sumsq grid, combine tile columns, combine grid)
+# by device index
+_GEOMETRY: Dict[int, Tuple[int, int, int, int]] = {}
+# the two counters of the launches on a (device index, stream)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -53,30 +67,55 @@ def combine_work(r: int, d: int, m_ant: int):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    if not getattr(lib, "_typed", False):
-        lib.pfels_combine_cols_per_block.argtypes = []
-        lib.pfels_combine_cols_per_block.restype = ctypes.c_int
-        lib.pfels_client_sumsq.argtypes = [_P, _P, _P, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           _P]
-        lib.pfels_client_sumsq.restype = ctypes.c_int
-        lib.pfels_fused_combine.argtypes = [_P, _P, _P, _P, ctypes.c_int,
-                                            _P, _P, _P, _P, _P, ctypes.c_int,
-                                            ctypes.c_longlong, _P]
-        lib.pfels_fused_combine.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(SOURCE)
+        for name in ("pfels_sumsq_tile_cols", "pfels_combine_tile_cols"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _I
+        lib.pfels_resident_blocks.argtypes = [_I, _I]
+        lib.pfels_resident_blocks.restype = _I
+        lib.pfels_client_sumsq.argtypes = [_I, _P, _P, _P, _P, _I, _L, _I,
+                                           _I, _P]
+        lib.pfels_client_sumsq.restype = _I
+        lib.pfels_fused_combine.argtypes = [_I, _P, _P, _P, _P, _I, _P, _P,
+                                            _P, _P, _P, _P, _I, _L, _I, _P]
+        lib.pfels_fused_combine.restype = _I
+        _LIB = lib
+    return _LIB
+
+
+def _geometry(dev: int):
+    geo = _GEOMETRY.get(dev)
+    if geo is None:
+        lib = _lib()
+        geo = (lib.pfels_sumsq_tile_cols(), lib.pfels_resident_blocks(dev, 0),
+               lib.pfels_combine_tile_cols(),
+               lib.pfels_resident_blocks(dev, 1))
+        if min(geo) < 1:
+            raise RuntimeError(f"pfels_transmit: no resident blocks on "
+                               f"device {dev}")
+        _GEOMETRY[dev] = geo
+    return geo
+
+
+def _ticket(dev: int, stream: int) -> int:
+    t = _TICKETS.get((dev, stream))
+    if t is None:
+        t = _TICKETS[(dev, stream)] = torch.zeros(
+            (2,), dtype=torch.int32, device=torch.device("cuda", dev))
+    return t.data_ptr()
 
 
 def _check(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype is torch.float32 and t.shape == shape and t.is_contiguous():
+        return
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -84,11 +123,17 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
 
 
+def _on_one_card(tensors) -> bool:
+    """All on one CUDA device (else ``route`` sorts them out)."""
+    dev = tensors[0].get_device()
+    return all(t.is_cuda and t.get_device() == dev for t in tensors)
+
+
 def client_sumsq(u: torch.Tensor) -> torch.Tensor:
     """u: (r, d) f32 -> (r,) per-client sums of squares."""
     if u.ndim != 2:
         raise ValueError(f"u must be (r, d), got {tuple(u.shape)}")
-    where = route(u)
+    where = route(u) if u.device.type != "cuda" else "cuda"
     if where == "cpu":
         return ref.client_sumsq_ref(u)
     r, d = u.shape
@@ -98,18 +143,21 @@ def client_sumsq(u: torch.Tensor) -> torch.Tensor:
     if where == "meta":
         op_cost.charge_kernel("client_sumsq", *sumsq_work(r, d))
         return u.new_empty((r,))
-    n_chunks = -(-d // SUMSQ_CHUNK)
-    partial = torch.empty((r, n_chunks), dtype=torch.float32, device=u.device)
-    out = torch.empty((r,), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _lib().pfels_client_sumsq(u.data_ptr(), partial.data_ptr(),
-                                        out.data_ptr(), r, d, SUMSQ_CHUNK,
-                                        stream)
-    _raise_on(err, "client_sumsq")
+    dev = u.get_device()
+    tile, most = _geometry(dev)[:2]
+    n_tiles = -(-d // tile)
+    stride = -(-n_tiles // 4) * 4
+    head = -(-r // 4) * 4
+    # out (r,), then the (r, stride) tile partials, 16-byte aligned
+    buf = u.new_empty((head + r * stride,))
+    stream = current_stream(dev)
+    ptr = buf.data_ptr()
+    _raise_on(_LIB.pfels_client_sumsq(
+        dev, u.data_ptr(), ptr, ptr + 4 * head, _ticket(dev, stream), r, d,
+        stride, min(most, r * n_tiles), stream), "client_sumsq")
     LAUNCHES["client_sumsq"] += 1
     op_cost.charge_kernel("client_sumsq", *sumsq_work(r, d))
-    return out
+    return buf[:r]
 
 
 def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
@@ -119,35 +167,35 @@ def fused_combine(u: torch.Tensor, mask: torch.Tensor, z: torch.Tensor,
     f32 -> (y (d,), energy ()). See ``ref.fused_combine_ref``."""
     if u.ndim != 2 or gains_mat.ndim != 2:
         raise ValueError("u and gains_mat must be 2-D")
-    where = route(u, mask, z, gains_mat, tx, txm)
+    args = (u, mask, z, gains_mat, tx, txm)
+    where = "cuda" if _on_one_card(args) else route(*args)
     if where == "cpu":
-        return ref.fused_combine_ref(u, mask, z, gains_mat, tx, txm)
+        return ref.fused_combine_ref(*args)
     r, d = u.shape
     m_ant = gains_mat.shape[1]
     if r < 1 or d < 1 or m_ant < 1:
         raise ValueError(f"empty operand: u {tuple(u.shape)}, gains "
                          f"{tuple(gains_mat.shape)}")
-    for name, t, shape in (("u", u, (r, d)), ("mask", mask, (d,)),
-                           ("z", z, (d,)), ("gains_mat", gains_mat,
-                                            (r, m_ant)),
-                           ("tx", tx, (r,)), ("txm", txm, (r,))):
+    for name, t, shape in zip(("u", "mask", "z", "gains_mat", "tx", "txm"),
+                              args, ((r, d), (d,), (d,), (r, m_ant), (r,),
+                                     (r,))):
         _check(name, t, shape)
     if where == "meta":
         op_cost.charge_kernel("fused_combine", *combine_work(r, d, m_ant))
         return u.new_empty((d,)), u.new_empty(())
-    lib = _lib()
-    n_blocks = -(-d // lib.pfels_combine_cols_per_block())
-    y = torch.empty((d,), dtype=torch.float32, device=u.device)
-    e_partial = torch.empty((n_blocks,), dtype=torch.float32,
-                            device=u.device)
-    energy = torch.empty((1,), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.pfels_fused_combine(
-            u.data_ptr(), mask.data_ptr(), z.data_ptr(), gains_mat.data_ptr(),
-            m_ant, tx.data_ptr(), txm.data_ptr(), y.data_ptr(),
-            e_partial.data_ptr(), energy.data_ptr(), r, d, stream)
-    _raise_on(err, "fused_combine")
+    dev = u.get_device()
+    tile, most = _geometry(dev)[2:]
+    grid = min(most, -(-d // tile))
+    y = u.new_empty((d,))
+    # the energy, then the grid's energy partials 16 bytes on
+    small = u.new_empty((4 + grid,))
+    stream = current_stream(dev)
+    ptr = small.data_ptr()
+    _raise_on(_LIB.pfels_fused_combine(
+        dev, u.data_ptr(), mask.data_ptr(), z.data_ptr(),
+        gains_mat.data_ptr(), m_ant, tx.data_ptr(), txm.data_ptr(),
+        y.data_ptr(), ptr, ptr + 16, _ticket(dev, stream), r, d, grid,
+        stream), "fused_combine")
     LAUNCHES["fused_combine"] += 1
     op_cost.charge_kernel("fused_combine", *combine_work(r, d, m_ant))
-    return y, energy[0]
+    return y, small[0]

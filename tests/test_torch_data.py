@@ -11,7 +11,6 @@ import threading
 import time
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 # the imports below need torch, which is skipped where absent

@@ -8,6 +8,7 @@ has only the port's dependencies:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \\
         tests/test_torch_kernels_cuda.py
 """
+import ctypes
 import dataclasses
 
 import pytest
@@ -16,8 +17,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import prng
-from repro_torch.configs import reduced_config
+from repro_torch.configs import BENCH_CNN_CIFAR, PFELSConfig, reduced_config
 from repro_torch.core import aggregation
+from repro_torch.data import make_federated_classification
+from repro_torch.fl import Trainer
 from repro_torch.kernels.aircomp_combine import kernel as comb_kernel
 from repro_torch.kernels.aircomp_combine import ops as comb_ops
 from repro_torch.kernels.aircomp_combine import ref as comb_ref
@@ -32,11 +35,18 @@ from repro_torch.kernels.randk_gather import ops as gather_ops
 from repro_torch.kernels.randk_gather import ref as gather_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models import cnn
 from repro_torch.models import transformer as T
 
-# (r, d, M): ragged d, r in {1, 3, 32}, M in {1, 4}
+# (r, d, M): ragged d, r in {1, 3, 32}, M in {1, 4}; d = 1, 2 and 3 mod 4
+# at r = 3 (rows at every offset from 16-byte alignment), r = 128
+# (coefficients past one warp), FEMNIST's ResNet-18 update at r = 32
 SHAPES = [(1, 4100, 1), (3, 4100, 4), (4, 37, 1), (32, 100_003, 1),
-          (5, 8192 * 3 + 1, 4)]
+          (5, 8192 * 3 + 1, 4), (3, 4101, 4), (3, 4102, 4), (3, 4103, 1),
+          (128, 100_003, 4), (32, 11_189_886, 1)]
+# where one client's row lies in the row-independence test: alone, row 5
+# of a shard of 8, row 21 of the main path's 32
+ROW_PLACES = [(1, 0), (8, 5), (32, 21)]
 # f32 sums in another order than the plain version's: ~100 ulp
 RTOL = 1e-5
 
@@ -124,6 +134,92 @@ def test_fused_combine_scenario_inputs_match_plain(cuda, m):
     torch.testing.assert_close(e1, e_p, rtol=RTOL, atol=0.0)
     assert torch.equal(y1, y2) and torch.equal(e1, e2)
     assert not y1[mask == 0].any()
+
+
+@pytest.mark.parametrize("d", [4101, 4102, 4103, 100_003, 9_222_858])
+def test_client_sumsq_is_row_independent(cuda, d):
+    """One client's sum is the same bits wherever its row lies: the order
+    of its sums depends only on its values and d."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = 0.01 * torch.randn((d,), generator=g, device=cuda)
+    sums = []
+    for r, row in ROW_PLACES:
+        u = 0.01 * torch.randn((r, d), generator=g, device=cuda)
+        u[row] = x
+        sums.append(kernel.client_sumsq(u)[row])
+    assert all(torch.equal(s, sums[0]) for s in sums[1:])
+    torch.testing.assert_close(sums[0], ref.client_sumsq_ref(x[None])[0],
+                               rtol=RTOL, atol=0.0)
+
+
+def test_transmit_pair_on_two_streams(cuda):
+    """Two streams launching at once each have their own ticket counter:
+    both get their own sums."""
+    a = _inputs(32, 300_007, 1, cuda, seed=1)
+    b = _inputs(8, 300_007, 4, cuda, seed=2)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    out = [None, None]
+    for _ in range(3):
+        for i, (args, st) in enumerate(zip((a, b), streams)):
+            with torch.cuda.stream(st):
+                out[i] = (kernel.client_sumsq(args[0]),
+                          kernel.fused_combine(*args))
+    torch.cuda.synchronize()
+    for args, (s, (y, e)) in zip((a, b), out):
+        torch.testing.assert_close(s, ref.client_sumsq_ref(args[0]),
+                                   rtol=RTOL, atol=0.0)
+        y_p, e_p = ref.fused_combine_ref(*args)
+        _assert_y_close(y, y_p)
+        torch.testing.assert_close(e, e_p, rtol=RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("r,d", [(1, 9_222_858), (32, 100_003)])
+def test_transmit_pair_runs_one_device_kernel_a_call(cuda, r, d):
+    """The last block sums the partials and sets the stream's ticket
+    counter back to 0: one device kernel a call, no fill."""
+    args = _inputs(r, d, 2, cuda, seed=r)
+    kernel.client_sumsq(args[0])
+    kernel.fused_combine(*args)
+    assert _device_kernels(lambda: kernel.client_sumsq(args[0])) == 1
+    assert _device_kernels(lambda: kernel.fused_combine(*args)) == 1
+
+
+def test_fused_combine_energy_does_not_hold_y(cuda):
+    """The energy is a view of a small buffer of its own: a caller that
+    keeps it, as ``Trainer.run`` keeps every round's metrics, does not
+    keep y's storage alive."""
+    args = _inputs(4, 100_003, 1, cuda, seed=3)
+    y, e = kernel.fused_combine(*args)
+    assert (y.untyped_storage().data_ptr()
+            != e.untyped_storage().data_ptr())
+    assert e.untyped_storage().nbytes() < 4 * 4096
+
+
+def test_run_keeps_no_round_buffers(cuda):
+    """The device memory a ``Trainer.run`` leaves allocated (its state
+    and stacked metrics) does not grow with the rounds by a d-sized
+    buffer a round."""
+    cfg_m = BENCH_CNN_CIFAR
+    params = cnn.init_cnn(prng.PRNGKey(0, cuda), cfg_m, device=cuda)
+    d = sum(p.numel() for p in params.values())
+    x, y, _, _ = make_federated_classification(
+        prng.PRNGKey(0, cuda), n_clients=16, per_client=8, num_classes=10,
+        image_shape=(3, 16, 16), device=cuda)
+    cfg = PFELSConfig(num_clients=16, clients_per_round=4, local_steps=1,
+                      transmit_clip=0.25, use_fused_kernel=True)
+    trainer = Trainer(cfg, lambda p, b: cnn.cnn_loss(p, cfg_m, b), params,
+                      device=cuda)
+    state = trainer.init(prng.PRNGKey(1, cuda))
+    allocated = []
+    for rounds in (2, 8):
+        kernel.reset_launch_counts()
+        out = trainer.run(state, x, y, rounds=rounds)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES["fused_combine"] == rounds
+        allocated.append(torch.cuda.memory_allocated())
+        del out
+    assert allocated[1] - allocated[0] < 4 * d, (allocated, d)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -691,16 +787,31 @@ def _misaligned(t):
     return out
 
 
+
+
 def _device_kernels(fn):
-    """Kernels, copies and fills the card runs for one call of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """Kernels, copies and fills that one call of ``fn`` enqueues on the
+    card: the nodes of a CUDA graph captured from the call. Nothing runs,
+    and the count does not depend on what ran before it in the process,
+    as ``torch.profiler``'s has (it has missed ``clip_norm``'s cooperative
+    launch after other sessions). ``fn`` runs once first on the capturing
+    stream, so that the transmit pair's ticket counter for that stream
+    exists before the capture."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
         fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA"))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    graph.reset()
+    assert err == 0, f"cuGraphGetNodes: CUDA driver error {err}"
+    return n.value
 
 
 def test_clip_norm_above_l2_size(cuda):

@@ -26,8 +26,11 @@ from repro_torch.kernels.pfels_transmit import kernel as tkernel
 from repro_torch.kernels.pfels_transmit import ops as tops
 from repro_torch.kernels.pfels_transmit import ref as tref
 
-# (r, d, M): ragged d (not a multiple of 128), r in {1, 3, 4}, M in {1, 4}
-SHAPES = [(1, 4100, 1), (3, 4100, 4), (4, 37, 1), (4, 301, 4), (3, 128, 1)]
+# (r, d, M): ragged d (not a multiple of 128), r in {1, 3, 4}, M in {1, 4};
+# d = 1, 2 and 3 mod 4 at r = 3 (the card's rows at every offset from
+# 16-byte alignment) and r = 1 over several of the card's column tiles
+SHAPES = [(1, 4100, 1), (3, 4100, 4), (4, 37, 1), (4, 301, 4), (3, 128, 1),
+          (3, 4101, 1), (3, 4102, 4), (1, 20_011, 1)]
 # f32 sums over r clients and d columns in another order than the
 # reference's: 1e-5 relative is ~100 ulp
 RTOL = 1e-5
