@@ -9,6 +9,8 @@
                                          # and the kernel_api chain
     python3 chip_smoke.py --time-transmit  # only the PFELS transmit
                                          # pair's times
+    python3 chip_smoke.py --time-tracing  # only what the program's
+                                         # spans cost, and their clock
     python3 chip_smoke.py --sharded      # only the main path, the
                                          # sharded and multi-pod phases
                                          # and the per-shard kernels
@@ -256,6 +258,13 @@ registers when this process built the library, and prints no result
 line. Like ``--time-ssd`` it uses only what every tree of the port has
 (the two wrappers and their ``*_work`` formulas), for the same turns with
 a parent commit.
+
+``--time-tracing`` builds ``clip_norm``, ``ssd_scan`` and ``flash_attn``
+and then only measures the program's spans (``repro_torch.tracing``): a
+span's cost off and on, zamba2-2.7b's PFELS step and its 32 x 2048
+prefill untraced and traced in turns, each span against its profiler
+event under host and CUDA activity, and whether spans record under CUDA
+activity alone; it prints no result line.
 
 Then the kernel summary line (the flash row with its times at every
 timed shape under ``by_shape``; the serving kernels' launches summed over
@@ -3854,8 +3863,7 @@ def phase_llm_train(profile: bool, predicted: dict):
     if failures:
         raise AssertionError("; ".join(failures))
     if profile:
-        profile_llm_step(cfg, params, pfels[1], steps[1], batches[0],
-                         keys[0], d, smi)
+        profile_llm_step(params, steps[1], batches[0], keys[0], smi)
     layout_padded = -(-d // 128) * 128
     del params, data, batches
     torch.cuda.empty_cache()
@@ -3864,52 +3872,34 @@ def phase_llm_train(profile: bool, predicted: dict):
     return launches, summary
 
 
-def profile_llm_step(cfg, params, pfels, step, batch, k, d, smi):
+LLM_STEP_PARTS = ("forward_backward", "clip", "channel", "masks", "energy",
+                  "aggregate", "aggregate.noise", "aggregate.combine")
+
+
+def profile_llm_step(params, step, batch, k, smi):
     """``--profile``: one more tau = 1 step under the profiler (device
-    busy time and idle share), then its parts timed one by one."""
+    busy time and idle share), and the host seconds of its parts from the
+    program's own spans of that step (``repro_torch.tracing``; the
+    aggregate's noise and combine summed over the leaves)."""
     import torch
-    from repro_torch import prng
-    from repro_torch.core import aggregation, randk
-    from repro_torch.core.clipping import FlatTree, clip_tree_flat
-    from repro_torch.kernels.clip_norm import kernel as clip_kernel
-    from repro_torch.launch.steps import _round_channel, make_train_loss_step
+    from repro_torch import tracing
+    tracing.clear()
     prof = profile_call("zamba2-2.7b PFELS step, tau 1, batch 8 x 512",
                         lambda: step(params, batch, k), top=15)
-    parts = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        parts[name] = time.perf_counter() - t0
-        return out
-
-    _, _, grads = timed("forward_backward", lambda: make_train_loss_step(
-        cfg)(params, batch))
-    layout = FlatTree(grads)
-    flat = timed("gather_f32", lambda: layout.gather(grads))
-    timed("clip_kernel", lambda: clip_kernel.clip_norm(
-        flat.view(-1, 128), 1.0))
-    del flat
-    update, _, _ = timed("clip_tree_flat", lambda: clip_tree_flat(
-        grads, pfels.clip))
-    del grads
-    kc, km, kn = prng.split(k, 3)
-    _, beta = _round_channel(kc, pfels, d, 1)
-    utree = layout.tree(update)
-    masks = timed("mask_tree", lambda: randk.mask_tree(
-        km, utree, pfels.compression_ratio))
-    timed("production_aggregate",
-          lambda: aggregation.pfels_production_aggregate(
-              utree, masks, beta=beta, r=1, sigma0=pfels.channel.noise_std,
-              noise_key=kn))
-    del update, utree, masks
+    spans = tracing.records()
+    root = max((s for s in spans if s.name == "step" and s.parent is None),
+               key=lambda s: s.end_ns)
+    parts = dict.fromkeys(LLM_STEP_PARTS, 0.0)
+    for s in spans:
+        if (s.unit, s.thread) == (root.unit, root.thread) and s.name in parts:
+            parts[s.name] += (s.end_ns - s.start_ns) / 1e9
     emit({"phase": "llm_train", "part": "split of one tau = 1 step",
           "step_wall_s": prof["wall_s"],
+          "step_span_s": (root.end_ns - root.start_ns) / 1e9,
           "step_device_busy_s": prof["device_busy_s"],
           "device_idle_share": prof["device_idle_share"],
           "parts_s": parts, "nvidia_smi": smi})
+    tracing.clear()
     torch.cuda.empty_cache()
 
 
@@ -4358,6 +4348,172 @@ def phase_transmit_timing():
         torch.cuda.empty_cache()
 
 
+TRACING_PAIRS = 3          # alternated untraced and traced units a kind
+TRACING_SPAN_LOOPS = 200_000
+
+
+def _span_cost_ns():
+    """Nanoseconds a ``with span(...)`` costs on this host, the loop
+    around it included: off, and on with ``tracing.enable()`` and no
+    profiler."""
+    from repro_torch import tracing
+
+    def loop(make):
+        t0 = time.perf_counter_ns()
+        for _ in range(TRACING_SPAN_LOOPS):
+            with make("x"):
+                pass
+        return (time.perf_counter_ns() - t0) / TRACING_SPAN_LOOPS
+
+    out = {"off": loop(tracing.span)}
+    tracing.enable()
+    out["on"] = loop(tracing.span)
+    tracing.disable()
+    tracing.clear()
+    return out
+
+
+def _tracing_alternated(run):
+    """``TRACING_PAIRS`` pairs of ``run()`` untraced and with
+    ``tracing.enable()``, which side first alternating, each on the host
+    clock to a synchronise; and the spans a traced unit opened."""
+    import torch
+    from repro_torch import tracing
+    times = {"off": [], "on": []}
+    tracing.clear()
+    for i in range(TRACING_PAIRS):
+        for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            if side == "on":
+                tracing.enable()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[side].append(time.perf_counter() - t0)
+            tracing.disable()
+    spans = len(tracing.records()) / TRACING_PAIRS
+    tracing.clear()
+    return {"s_off": times["off"], "s_on": times["on"],
+            "spans_per_unit": spans}
+
+
+def _tracing_clock_check(run):
+    """``run()`` under the profiler with host and CUDA activity, as the
+    traced run's third phase: each program span's times less its
+    ``repro_torch.<name>`` host event's (the n-th span of a name against
+    the n-th event, both by start), their least and largest in us, and
+    the worst span's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    tracing.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = {}
+    for evt in prof.profiler.kineto_results.events():
+        name = evt.name()
+        if name.startswith(tracing.PREFIX) and \
+                "CPU" in str(evt.device_type()):
+            events.setdefault(name[len(tracing.PREFIX):], []).append(
+                (int(evt.start_ns()), int(evt.end_ns())))
+    spans = {}
+    for sp in tracing.records():
+        spans.setdefault(sp.name, []).append((sp.start_ns, sp.end_ns))
+    tracing.clear()
+    gaps, unmatched = [], {}
+    for name, got in spans.items():
+        want = sorted(events.get(name, []))
+        if len(want) != len(got):
+            unmatched[name] = [len(got), len(want)]
+            continue
+        gaps += [((s - ws) / 1e3, (e - we) / 1e3, name)
+                 for (s, e), (ws, we) in zip(sorted(got), want)]
+    worst = max(gaps, key=lambda g: max(abs(g[0]), abs(g[1])),
+                default=None)
+    return {"spans": sum(len(v) for v in spans.values()),
+            "start_gap_us": [min(g[0] for g in gaps), max(g[0] for g in gaps)]
+            if gaps else None,
+            "end_gap_us": [min(g[1] for g in gaps), max(g[1] for g in gaps)]
+            if gaps else None,
+            "worst": worst, "unmatched_spans_events": unmatched}
+
+
+def _tracing_cuda_only(run):
+    """Whether the program's spans turn on under the profiler with CUDA
+    activity alone (the traced run's second phase), with the profiler
+    flags they may read."""
+    import torch
+    import torch.autograd.profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        flags = {"python_flag": bool(getattr(
+                     autograd_profiler, "_is_profiler_enabled", False)),
+                 "c_check": bool(torch._C._autograd._profiler_enabled())}
+        run()
+        torch.cuda.synchronize()
+    flags["spans"] = len(tracing.records())
+    tracing.clear()
+    return flags
+
+
+def phase_tracing_timing():
+    """``--time-tracing``: what the program's spans (``repro_torch.
+    tracing``) cost on the card's host, off and on; zamba2-2.7b's PFELS
+    step (tau 1, batch 8 x 512) and its prefill (32 x 2048 tokens), each
+    untraced and traced in alternation, with the spans a unit opens; and
+    each span against its profiler event, once under host and CUDA
+    activity, and whether spans record under CUDA activity alone."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_pfels_train_step
+    from repro_torch.models import transformer as T
+    _build.build(["clip_norm", "ssd_scan", "flash_attn"])
+    emit({"phase": "tracing_timing", "span_ns": _span_cost_ns(),
+          "torch": torch.__version__})
+    cfg = get_config("zamba2-2.7b")
+    key = prng.PRNGKey(0)
+    box = {"params": T.init_params(key, cfg)}
+    d = T.param_count(box["params"])
+    tok = prng.randint(prng.PRNGKey(1), (LLM_TRAIN_BATCH, LLM_TRAIN_SEQ + 1),
+                       0, cfg.vocab_size).long()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    step = make_pfels_train_step(cfg, _pfels_llm_config(d, 1), d)
+    n = [0]
+
+    def run_step():
+        n[0] += 1
+        box["params"], _ = step(box["params"], batch, prng.fold_in(key,
+                                                                   n[0]))
+
+    run_step()
+    line = {"phase": "tracing_timing", "unit": "zamba2-2.7b PFELS step",
+            **_tracing_alternated(run_step),
+            "clock": _tracing_clock_check(run_step)}
+    emit(line)
+    torch.cuda.empty_cache()
+    toks = prng.randint(prng.PRNGKey(2), (32, 2048), 0, cfg.vocab_size)
+
+    def run_prefill():
+        with torch.no_grad():
+            box["out"] = T.prefill(box["params"], cfg, {"tokens": toks})
+        box.pop("out")
+
+    run_prefill()
+    emit({"phase": "tracing_timing", "unit": "zamba2-2.7b prefill 32 x 2048",
+          **_tracing_alternated(run_prefill),
+          "clock": _tracing_clock_check(run_prefill),
+          "cuda_only": _tracing_cuda_only(run_prefill)})
+    del box
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4392,6 +4548,11 @@ def main(argv=None) -> int:
                          "path's 3 rounds and one profiled round (no "
                          "result line): the comparison with a parent "
                          "tree")
+    ap.add_argument("--time-tracing", action="store_true",
+                    help="only what the program's spans cost, off and on, "
+                         "at the zamba2-2.7b step and prefill, and each "
+                         "span against its profiler event (no result "
+                         "line)")
     ap.add_argument("--time-rows", action="store_true",
                     help="only time the three row kernels at the VGG-11 "
                          "shapes and run the kernel_api chain (no result "
@@ -4417,6 +4578,10 @@ def main(argv=None) -> int:
         from repro_torch.kernels import _build
         _build.build(["pfels_transmit"])
         phase_main_path(profile=True)
+        print(smi, flush=True)
+        return 0
+    if args.time_tracing:
+        phase_tracing_timing()
         print(smi, flush=True)
         return 0
     if args.time_rows:

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.core import channel as chan
 from repro_torch.core.clipping import row_norms
 from repro_torch.core.compressors import base as comp_base
@@ -190,14 +190,16 @@ def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
     out = []
     for x, m, k in zip(leaves, tree_leaves(masks), keys):
         mf = m.to(x.dtype)
-        z = prng.normal(k, tuple(x.shape)).to(x.dtype)
-        if group is None:
-            out.append(prng.fma_f32(x * mf, beta, (sigma0 * mf) * z)
-                       * scale)
-        else:
-            summed = (x * mf) * beta
-            dist.all_reduce(summed, group=group)
-            op_cost.charge_collective("all-reduce", summed.nbytes,
-                                      dist.get_world_size(group))
-            out.append((summed + (sigma0 * mf) * z) * scale)
+        with tracing.span("aggregate.noise"):
+            z = prng.normal(k, tuple(x.shape)).to(x.dtype)
+        with tracing.span("aggregate.combine"):
+            if group is None:
+                out.append(prng.fma_f32(x * mf, beta, (sigma0 * mf) * z)
+                           * scale)
+            else:
+                summed = (x * mf) * beta
+                dist.all_reduce(summed, group=group)
+                op_cost.charge_collective("all-reduce", summed.nbytes,
+                                          dist.get_world_size(group))
+                out.append((summed + (sigma0 * mf) * z) * scale)
     return tree_unflatten(update_tree, out)

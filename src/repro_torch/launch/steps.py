@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.configs.base import ModelConfig, PFELSConfig
 from repro_torch.core import aggregation, channel, power_control, randk
 from repro_torch.core.clipping import clip_tree_flat
@@ -109,10 +109,12 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
         steps, each on a 1/tau slice of the batch, the params kept in
         their dtype; Delta = theta_tau - theta_0 in f32."""
         if tau == 1:
-            (loss, metrics), grads = grads_of(params, batch)
-            flat, gnorm, layout = clip_tree_flat(grads, pfels.clip)
-            del grads
-            flat.mul_(-lr)
+            with tracing.span("forward_backward"):
+                (loss, metrics), grads = grads_of(params, batch)
+            with tracing.span("clip"):
+                flat, gnorm, layout = clip_tree_flat(grads, pfels.clip)
+                del grads
+                flat.mul_(-lr)
             return layout.tree(flat), loss, metrics, gnorm
         b0 = tree_leaves(batch)[0].shape[0]
         if b0 % tau != 0:
@@ -122,9 +124,11 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
         p = params
         losses, ms, gnorms = [], [], []
         for b_s in _split_batch(batch, tau):
-            (loss, m), g = value_and_grad(loss_fn, p, b_s)
-            flat, gnorm, layout = clip_tree_flat(g, pfels.clip)
-            del g
+            with tracing.span("forward_backward"):
+                (loss, m), g = value_and_grad(loss_fn, p, b_s)
+            with tracing.span("clip"):
+                flat, gnorm, layout = clip_tree_flat(g, pfels.clip)
+                del g
             p = tree_map(lambda p_, g_: (p_.float() - lr * g_).to(p_.dtype),
                          p, layout.tree(flat))
             del flat
@@ -139,28 +143,38 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
                 metrics, torch.mean(torch.stack(gnorms)))
 
     def step(params, batch, key):
-        update, loss, metrics, gnorm = local_update(params, batch)
-        kc, km, kn = prng.split(key, 3)
-        gains, beta = _round_channel(kc, pfels, d, 1)
-        masks = randk.mask_tree(km, update, pfels.compression_ratio)
-        # the energy's sum of squares before the aggregate: the masked
-        # update is a temporary of one leaf at a time
-        sq = 0
-        for x, m in zip(tree_leaves(update), tree_leaves(masks)):
-            sq = sq + torch.sum(torch.square(x * m.to(x.dtype)))
-        delta = aggregation.pfels_production_aggregate(
-            update, masks, beta=beta, r=1, sigma0=sigma0, noise_key=kn,
-            unbiased_rescale=pfels.unbiased_rescale,
-            compression_p=pfels.compression_ratio)
-        del update, masks
-        new_params = tree_map(
-            lambda p_, u: (p_.float() + u.float()).to(p_.dtype),
-            params, delta)
-        energy = (beta / gains[0]) ** 2 * sq
-        return new_params, dict(metrics, loss=loss, beta=beta,
-                                grad_norm=gnorm, energy=energy)
+        with tracing.span("step"):
+            update, loss, metrics, gnorm = local_update(params, batch)
+            kc, km, kn = prng.split(key, 3)
+            with tracing.span("channel"):
+                gains, beta = _round_channel(kc, pfels, d, 1)
+            with tracing.span("masks"):
+                masks = randk.mask_tree(km, update, pfels.compression_ratio)
+            # the energy's sum of squares before the aggregate: the masked
+            # update is a temporary of one leaf at a time
+            with tracing.span("energy"):
+                sq = 0
+                for x, m in zip(tree_leaves(update), tree_leaves(masks)):
+                    sq = sq + torch.sum(torch.square(x * m.to(x.dtype)))
+            with tracing.span("aggregate"):
+                delta = aggregation.pfels_production_aggregate(
+                    update, masks, beta=beta, r=1, sigma0=sigma0,
+                    noise_key=kn, unbiased_rescale=pfels.unbiased_rescale,
+                    compression_p=pfels.compression_ratio)
+            del update, masks
+            with tracing.span("apply"):
+                new_params = tree_map(
+                    lambda p_, u: (p_.float() + u.float()).to(p_.dtype),
+                    params, delta)
+            energy = (beta / gains[0]) ** 2 * sq
+            return new_params, dict(metrics, loss=loss, beta=beta,
+                                    grad_norm=gnorm, energy=energy)
 
     def step_multi(params_c, batch, key):
+        with tracing.span("step"):
+            return _step_multi(params_c, batch, key)
+
+    def _step_multi(params_c, batch, key):
         b_local = tree_leaves(batch)[0].shape[0] // n_clients
         updates, losses, ms, gnorms = [], [], [], []
         for i in range(n_clients):
@@ -172,36 +186,48 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
             ms.append(metrics)
             gnorms.append(gnorm)
         kc, km, kn = prng.split(key, 3)
-        gains, beta = _round_channel(kc, pfels, d, n_clients)
-        masks = tree_leaves(randk.mask_tree(
-            km, tree_unflatten(params_c, updates[0]),
-            pfels.compression_ratio))
-        scale = 1.0 / (n_clients * beta)
-        if pfels.unbiased_rescale:
-            scale = scale / pfels.compression_ratio
-        # the superposition and each client's masked sum of squares, one
-        # leaf at a time
-        sq = [0] * n_clients
-        delta = []
-        for j, (m, k) in enumerate(zip(masks, prng.split(kn, len(masks)))):
-            summed = None
-            for i in range(n_clients):
-                x = updates[i][j]
-                masked = x * m.to(x.dtype)
-                sq[i] = sq[i] + torch.sum(torch.square(masked))
-                summed = (masked * beta if summed is None
-                          else summed + masked * beta)
-            mf = m.to(summed.dtype)
-            z = prng.normal(k, tuple(summed.shape)).to(summed.dtype)
-            delta.append((summed + (sigma0 * mf) * z) * scale)
+        with tracing.span("channel"):
+            gains, beta = _round_channel(kc, pfels, d, n_clients)
+        with tracing.span("masks"):
+            masks = tree_leaves(randk.mask_tree(
+                km, tree_unflatten(params_c, updates[0]),
+                pfels.compression_ratio))
+        # each client's masked sum of squares, one leaf at a time
+        with tracing.span("energy"):
+            sq = [0] * n_clients
+            for j, m in enumerate(masks):
+                for i in range(n_clients):
+                    x = updates[i][j]
+                    sq[i] = sq[i] + torch.sum(torch.square(
+                        x * m.to(x.dtype)))
+            energy = torch.sum((beta / gains[:n_clients]) ** 2
+                               * torch.stack(sq))
+        # the superposition, one leaf at a time
+        with tracing.span("aggregate"):
+            scale = 1.0 / (n_clients * beta)
+            if pfels.unbiased_rescale:
+                scale = scale / pfels.compression_ratio
+            delta = []
+            for j, (m, k) in enumerate(zip(masks,
+                                           prng.split(kn, len(masks)))):
+                x0 = updates[0][j]
+                with tracing.span("aggregate.noise"):
+                    z = prng.normal(k, tuple(x0.shape)).to(x0.dtype)
+                with tracing.span("aggregate.combine"):
+                    summed = None
+                    for i in range(n_clients):
+                        x = updates[i][j]
+                        masked = (x * m.to(x.dtype)) * beta
+                        summed = masked if summed is None else summed + masked
+                    mf = m.to(summed.dtype)
+                    delta.append((summed + (sigma0 * mf) * z) * scale)
         del updates, masks
-        new_params = tree_map(
-            lambda p_, u: (p_.float() + u.float()[None]).to(p_.dtype),
-            params_c, tree_unflatten(params_c, delta))
-        energy = torch.sum((beta / gains[:n_clients]) ** 2
-                           * torch.stack(sq))
-        metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
-                   for k in ms[0]}
+        with tracing.span("apply"):
+            new_params = tree_map(
+                lambda p_, u: (p_.float() + u.float()[None]).to(p_.dtype),
+                params_c, tree_unflatten(params_c, delta))
+            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
+                       for k in ms[0]}
         return new_params, dict(metrics,
                                 loss=torch.mean(torch.stack(losses)),
                                 beta=beta,

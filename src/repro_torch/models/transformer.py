@@ -27,6 +27,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, mamba2
 from repro_torch.models import moe as moe_lib
@@ -238,39 +239,44 @@ def _block_apply(p, kind: str, cfg: ModelConfig, x, positions, *, mode: str,
     encoder's bidirectional self-attention; ``enc_kv`` adds the
     cross-attention."""
     aux = {}
-    h = layers.norm_apply(p["ln1"], x, cfg.norm, impl=cfg.norm_impl)
     use_kernel = mode != "train"
     if kind == "mamba":
+        with tracing.span("mamba"):
+            h = layers.norm_apply(p["ln1"], x, cfg.norm, impl=cfg.norm_impl)
+            if mode == "decode":
+                y, new_cache = mamba2.mamba_decode(p["mamba"], cfg, h, cache)
+            else:
+                y, new_cache = mamba2.mamba_train(p["mamba"], cfg, h,
+                                                  use_kernel=use_kernel)
+            return x + y, new_cache, aux
+    with tracing.span("attention"):
+        h = layers.norm_apply(p["ln1"], x, cfg.norm, impl=cfg.norm_impl)
         if mode == "decode":
-            y, new_cache = mamba2.mamba_decode(p["mamba"], cfg, h, cache)
+            y, new_cache = attention.attn_decode(p["attn"], cfg, h, cache,
+                                                 window=window,
+                                                 positions=positions)
+        elif causal:
+            y, new_cache = attention.attn_train(p["attn"], cfg, h, positions,
+                                                window=window,
+                                                use_kernel=use_kernel)
         else:
-            y, new_cache = mamba2.mamba_train(p["mamba"], cfg, h,
-                                              use_kernel=use_kernel)
-        return x + y, new_cache, aux
-    if mode == "decode":
-        y, new_cache = attention.attn_decode(p["attn"], cfg, h, cache,
-                                             window=window,
-                                             positions=positions)
-    elif causal:
-        y, new_cache = attention.attn_train(p["attn"], cfg, h, positions,
-                                            window=window,
-                                            use_kernel=use_kernel)
-    else:
-        y = attention.attn_bidirectional(p["attn"], cfg, h, positions,
-                                         use_kernel=use_kernel)
-        new_cache = None
-    x = x + y
-    if enc_kv is not None:
-        hc = layers.norm_apply(p["ln_cross"], x, cfg.norm, impl=cfg.norm_impl)
-        x = x + attention.cross_attn_apply(p["cross"], cfg, hc, enc_kv,
-                                           use_kernel=use_kernel)
-    h2 = layers.norm_apply(p["ln2"], x, cfg.norm, impl=cfg.norm_impl)
-    if kind == "moe":
-        y2, moe_aux = moe_lib.moe_apply(p["moe"], cfg, h2)
-        aux.update(moe_aux)
-    else:
-        y2 = layers.mlp_apply(p["mlp"], h2, cfg.mlp_act)
-    return x + y2, new_cache, aux
+            y = attention.attn_bidirectional(p["attn"], cfg, h, positions,
+                                             use_kernel=use_kernel)
+            new_cache = None
+        x = x + y
+        if enc_kv is not None:
+            hc = layers.norm_apply(p["ln_cross"], x, cfg.norm,
+                                   impl=cfg.norm_impl)
+            x = x + attention.cross_attn_apply(p["cross"], cfg, hc, enc_kv,
+                                               use_kernel=use_kernel)
+    with tracing.span("moe" if kind == "moe" else "mlp"):
+        h2 = layers.norm_apply(p["ln2"], x, cfg.norm, impl=cfg.norm_impl)
+        if kind == "moe":
+            y2, moe_aux = moe_lib.moe_apply(p["moe"], cfg, h2)
+            aux.update(moe_aux)
+        else:
+            y2 = layers.mlp_apply(p["mlp"], h2, cfg.mlp_act)
+        return x + y2, new_cache, aux
 
 
 def _unstack(tree, rep: int):
@@ -416,36 +422,41 @@ def prefill(params, cfg: ModelConfig, batch, *, window=None,
     slots (S counting the vision prefix), room for the decode steps that
     follow. Each block's aux metrics (a MoE block's load-balance loss and
     drop fraction) are appended to the list ``aux`` where one is given."""
-    enc_out = None
-    if cfg.is_encoder_decoder:
-        enc_out = encode(params, cfg, batch["audio_embeds"])
-    x, pos = _embed_inputs(params, cfg, batch["tokens"],
-                           batch.get("vision_embeds"))
-    b, s = x.shape[:2]
-    rep = cfg.resolved_repeat()
-    caches = make_caches(cfg, b, s + extra_slots, dtype=x.dtype,
-                         device=x.device)
-    for i, kind in enumerate(cfg.block_pattern):
-        if kind != "mamba":
-            caches[i]["idx"].fill_(s)
-            caches[i]["slot_pos"].copy_(torch.arange(
-                s + extra_slots, dtype=torch.int32, device=x.device))
-    for r in range(rep):
-        for i, kind in enumerate(cfg.block_pattern):
-            blk = layer_view(params["blocks"][i], r)
-            x, c, a = _block_apply(blk, kind, cfg, x, pos, mode="prefill",
-                                   window=window,
-                                   enc_kv=_cross_kv(blk, kind, cfg, enc_out))
-            if aux is not None:
-                aux.append(a)
-            dst = caches[i]
-            if kind == "mamba":
-                dst["ssm"][r].copy_(c["ssm"])
-                dst["conv"][r].copy_(c["conv"])
-            else:
-                dst["k"][r, :, :s].copy_(c["k"])
-                dst["v"][r, :, :s].copy_(c["v"])
-    return _head(params, cfg, x[:, -1:]), caches, enc_out
+    with tracing.span("prefill"):
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = encode(params, cfg, batch["audio_embeds"])
+        x, pos = _embed_inputs(params, cfg, batch["tokens"],
+                               batch.get("vision_embeds"))
+        b, s = x.shape[:2]
+        rep = cfg.resolved_repeat()
+        with tracing.span("caches"):
+            caches = make_caches(cfg, b, s + extra_slots, dtype=x.dtype,
+                                 device=x.device)
+            for i, kind in enumerate(cfg.block_pattern):
+                if kind != "mamba":
+                    caches[i]["idx"].fill_(s)
+                    caches[i]["slot_pos"].copy_(torch.arange(
+                        s + extra_slots, dtype=torch.int32, device=x.device))
+        for r in range(rep):
+            for i, kind in enumerate(cfg.block_pattern):
+                blk = layer_view(params["blocks"][i], r)
+                x, c, a = _block_apply(blk, kind, cfg, x, pos, mode="prefill",
+                                       window=window,
+                                       enc_kv=_cross_kv(blk, kind, cfg,
+                                                        enc_out))
+                if aux is not None:
+                    aux.append(a)
+                dst = caches[i]
+                if kind == "mamba":
+                    dst["ssm"][r].copy_(c["ssm"])
+                    dst["conv"][r].copy_(c["conv"])
+                else:
+                    dst["k"][r, :, :s].copy_(c["k"])
+                    dst["v"][r, :, :s].copy_(c["v"])
+        with tracing.span("head"):
+            logits = _head(params, cfg, x[:, -1:])
+        return logits, caches, enc_out
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, *, window=None,
