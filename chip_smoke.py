@@ -9,6 +9,8 @@
                                          # and the kernel_api chain
     python3 chip_smoke.py --time-transmit  # only the PFELS transmit
                                          # pair's times
+    python3 chip_smoke.py --time-threefry  # only the threefry draws'
+                                         # times at zamba2-2.7b's leaves
     python3 chip_smoke.py --time-tracing  # only what the program's
                                          # spans cost, and their clock
     python3 chip_smoke.py --sharded      # only the main path, the
@@ -23,9 +25,12 @@ Phases, each printing one JSON line:
    process per source, all started together.
 3. ``draws``: the port's threefry draws on the card against its CPU
    route, bit for bit (the same ops round alike on both): ``uniform``,
-   ``normal`` in f32 and bf16, ``normal_fma`` and ``exponential`` at
-   2^24 values; ``gamma`` and ``loggamma`` at alphas 0.1, 0.5, 1 and 3
-   and ``dirichlet`` (Dirichlet(0.5) over 62 classes) at 2^18 values
+   ``bernoulli`` and ``normal`` in f32 (the threefry kernel's launches),
+   ``normal`` in bf16, ``normal_fma`` and ``exponential`` at 2^24 values;
+   the single-client production aggregate (``threefry_combine``) on
+   odd-sized leaves, one 2^24 + 1; ``gamma`` and ``loggamma`` at alphas
+   0.1, 0.5, 1 and 3 and ``dirichlet`` (Dirichlet(0.5) over 62 classes)
+   at 2^18 values
    (the CPU route's rejection loops set the size: 9-25 s a draw of 2^20
    on the H100 machine's host); the Markov channel's
    gains from a 2^24-value latent and one AR(1) step of it; and XLA's
@@ -259,6 +264,14 @@ line. Like ``--time-ssd`` it uses only what every tree of the port has
 (the two wrappers and their ``*_work`` formulas), for the same turns with
 a parent commit.
 
+``--time-threefry`` runs the device phase and then only times the
+threefry kernels' two entries (``kernels/threefry``) at zamba2-2.7b's
+largest leaf and over its 57 leaves as the production step draws them:
+kernel ms (CUDA events), the bound (bytes, and the f64 and f32/f64
+conversion instructions counted in the kernels' SASS) and the plain
+route's ms on the card, each output against the plain route's bits; it
+prints no result line.
+
 ``--time-tracing`` builds ``clip_norm``, ``ssd_scan`` and ``flash_attn``
 and then only measures the program's spans (``repro_torch.tracing``): a
 span's cost off and on, zamba2-2.7b's PFELS step and its 32 x 2048
@@ -299,6 +312,9 @@ from repro_torch.launch.roofline import (  # noqa: E402
     PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S)
 
 MAIN_R, MAIN_D = 32, 9_222_858
+# the main path's threefry launches a round: the channel noise over the
+# subcarriers
+MAIN_THREEFRY = {"threefry_sample": 1, "threefry_combine": 0}
 # the sharded phase's world: gloo ranks sharing the one card
 SHARDED_WORLD = 4
 
@@ -311,8 +327,9 @@ def _kernel_modules():
     from repro_torch.kernels.pfels_transmit import kernel
     from repro_torch.kernels.randk_gather import kernel as gather_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.threefry import kernel as threefry
     return (kernel, ssd_kernel, flash_kernel, clip_kernel, gather_kernel,
-            comb_kernel)
+            comb_kernel, threefry)
 
 
 def emit(obj) -> None:
@@ -1640,6 +1657,7 @@ def phase_main_path(profile: bool):
     from repro_torch.data import make_federated_classification
     from repro_torch.fl import Trainer
     from repro_torch.kernels.pfels_transmit import kernel
+    from repro_torch.kernels.threefry import kernel as threefry
     from repro_torch.models import cnn
 
     cfg_m = PAPER_VGG11_CIFAR10
@@ -1671,9 +1689,11 @@ def phase_main_path(profile: bool):
         allocated.append(torch.cuda.memory_allocated())
 
     kernel.reset_launch_counts()
+    threefry.reset_launch_counts()
     end, metrics = trainer.run(state, x, y, rounds=rounds, on_round=on_round)
     torch.cuda.synchronize()
     launches = dict(kernel.LAUNCHES)
+    draws = dict(threefry.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     test_loss, test_acc = trainer.evaluate(end, xt, yt)
 
@@ -1689,7 +1709,7 @@ def phase_main_path(profile: bool):
             "round_wall_s": [b - a for a, b in zip(marks, marks[1:])],
             "peak_memory_bytes": peak,
             "allocated_bytes_after_round": allocated,
-            "launches": launches,
+            "launches": launches, "threefry_launches": draws,
             "train_loss": m["train_loss"], "beta": m["beta"],
             "energy": m["energy"], "eps_round": m["eps_round"],
             "update_norm": m["update_norm"],
@@ -1703,6 +1723,10 @@ def phase_main_path(profile: bool):
     for name, n in launches.items():
         if n != rounds:
             failures.append(f"{name} launched {n} times in {rounds} rounds")
+    want = {k: n * rounds for k, n in MAIN_THREEFRY.items()}
+    if draws != want:
+        failures.append(f"threefry launched {draws} in {rounds} rounds, "
+                        f"expected {want}")
     if not finite:
         failures.append("non-finite metric")
     if not eps_ok:
@@ -1811,16 +1835,21 @@ def phase_kernel_api():
 
 
 # the paper's comparators at the main path's config, 2 rounds each; the
-# launches each should make: the fused AirComp round launches
+# launches each should make a round: the fused AirComp round launches
 # fused_combine once, and client_sumsq once unless error feedback applies
-# the transmit clip itself (in plain torch); the digital schemes neither
+# the transmit clip itself (in plain torch); the digital schemes neither.
+# Every scheme that adds noise draws it with one threefry_sample a round
+# (the channel's over the subcarriers; DP-FedAvg's at the server)
 BASELINE_RUNS = (
-    ("wfl_p", {}, {"client_sumsq": 1, "fused_combine": 1}),
-    ("wfl_pdp", {}, {"client_sumsq": 1, "fused_combine": 1}),
-    ("dp_fedavg", {}, {"client_sumsq": 0, "fused_combine": 0}),
+    ("wfl_p", {}, {"client_sumsq": 1, "fused_combine": 1,
+                   "threefry_sample": 1}),
+    ("wfl_pdp", {}, {"client_sumsq": 1, "fused_combine": 1,
+                     "threefry_sample": 1}),
+    ("dp_fedavg", {}, {"client_sumsq": 0, "fused_combine": 0,
+                       "threefry_sample": 1}),
     ("fedavg", {}, {"client_sumsq": 0, "fused_combine": 0}),
     ("pfels", {"error_feedback": True},
-     {"client_sumsq": 0, "fused_combine": 1}),
+     {"client_sumsq": 0, "fused_combine": 1, "threefry_sample": 1}),
 )
 
 
@@ -3765,7 +3794,10 @@ def phase_llm_train(profile: bool, predicted: dict):
     (bf16, random weights from seed 0; the example's settings, batch 8 x
     512 tokens drawn by ``make_lm_sequences`` on the card): 3 steps at
     tau = 1 and 1 at tau = 2, timed; the clip_norm launches (zeroed just
-    before, read just after) must equal the sum of tau; the metrics finite
+    before, read just after) must equal the sum of tau, and the threefry
+    launches (zeroed before each step) one ``threefry_sample`` (the masks)
+    and one ``threefry_combine`` (the aggregate) a leaf a step; the
+    metrics finite
     and the masks' density within 1% of p; the tau = 1 steps' peak (reset
     after the data are made) within ``DRYRUN_PEAK_TOL`` of ``predicted``,
     the dry run's record of that step, and the tau = 2 step's own peak
@@ -3779,6 +3811,7 @@ def phase_llm_train(profile: bool, predicted: dict):
     from repro_torch.core import randk
     from repro_torch.data import make_lm_sequences
     from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.kernels.threefry import kernel as threefry
     from repro_torch.launch.steps import make_pfels_train_step
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
@@ -3805,17 +3838,22 @@ def phase_llm_train(profile: bool, predicted: dict):
     # and the init's temporaries are freed by now
     torch.cuda.reset_peak_memory_stats()
     clip_kernel.reset_launch_counts()
-    secs, metrics, peaks = [], [], {}
+    secs, metrics, peaks, draws = [], [], {}, []
     for tau, batch, k in zip(LLM_TRAIN_TAUS, batches, keys):
         if tau != 1 and 1 not in peaks:
             peaks[1] = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+        threefry.reset_launch_counts()
         t0 = time.perf_counter()
         params, m = steps[tau](params, batch, k)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        draws.append(dict(threefry.LAUNCHES))
         metrics.append({n: float(v) for n, v in m.items()})
     launches = clip_kernel.LAUNCHES["clip_norm"]
+    # a step's masks and its aggregate: one launch a leaf each
+    n_leaves = len(tree_leaves(params))
+    draws_want = {"threefry_sample": n_leaves, "threefry_combine": n_leaves}
     peaks[max(LLM_TRAIN_TAUS)] = torch.cuda.max_memory_allocated()
     pred_peak = predicted["memory"]["peak_bytes_per_device"]
     finite_params = all(bool(torch.isfinite(x).all())
@@ -3846,6 +3884,8 @@ def phase_llm_train(profile: bool, predicted: dict):
                 for t, tau in zip(secs, LLM_TRAIN_TAUS) if tau == 1],
             "launches": {"clip_norm": launches},
             "launches_expected": {"clip_norm": sum(LLM_TRAIN_TAUS)},
+            "threefry_launches_by_step": draws,
+            "threefry_launches_expected_a_step": draws_want,
             "metrics": metrics, "finite_metrics": finite,
             "finite_params": finite_params, "mask_density": density,
             "nvidia_smi": smi}
@@ -3854,6 +3894,9 @@ def phase_llm_train(profile: bool, predicted: dict):
     if launches != sum(LLM_TRAIN_TAUS):
         failures.append(f"clip_norm launched {launches} times, expected "
                         f"{sum(LLM_TRAIN_TAUS)}")
+    if any(n != draws_want for n in draws):
+        failures.append(f"threefry launched {draws} by step, expected "
+                        f"{draws_want} a step")
     if not (finite and finite_params):
         failures.append("non-finite metrics or params")
     p = pfels[1].compression_ratio
@@ -3933,6 +3976,7 @@ def phase_draws():
     import torch
     from repro_torch import prng, xla_samples
     from repro_torch.configs import ChannelConfig
+    from repro_torch.core import aggregation, randk
     from repro_torch.core.channels import markov
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or threads)
@@ -3950,9 +3994,28 @@ def phase_draws():
                              key(dev, 2), key(dev, 3))
         return torch.cat([z, cr.gains])
 
+    def combine(dev):
+        """The single-client production aggregate of odd-sized leaves
+        (the fused threefry_combine on the card), flattened."""
+        g = torch.Generator().manual_seed(5)
+        shapes = ((3, 241), (1025,), (7,), (n + 1,))
+        tree = [torch.randn(s, generator=g) * 1e-3 for s in shapes]
+        tree[0][0, :5] = torch.tensor([0.0, -0.0, -3.5, 1e-40, -1e-42])
+        masks = randk.mask_tree(key("cpu", 5), tree, 0.5)
+        masks[1].zero_()
+        masks[2].fill_(True)
+        out = aggregation.pfels_production_aggregate(
+            [x.to(dev) for x in tree], [m.to(dev) for m in masks],
+            beta=torch.tensor(7.3, device=dev), r=1, sigma0=1.3,
+            noise_key=key(dev, 6), unbiased_rescale=True,
+            compression_p=0.5)
+        return torch.cat([x.reshape(-1) for x in out])
+
     cases = [
         ("uniform", n, lambda d: prng.uniform(key(d), (n,))),
+        ("bernoulli", n, lambda d: prng.bernoulli(key(d), 0.3, (n,))),
         ("normal_f32", n, lambda d: prng.normal(key(d), (n,))),
+        ("fused_combine", n + 1025 + 3 * 241 + 8, combine),
         ("normal_bf16", n,
          lambda d: prng.normal(key(d), (n,), dtype=torch.bfloat16)),
         ("normal_fma", n, lambda d: prng.normal_fma(
@@ -4123,13 +4186,16 @@ def phase_llm_train_families(predicted: dict):
     ``DRYRUN_PEAK_TOL`` of the prediction, the step's share of the bf16
     peak (the prediction's model FLOPs over s/step x 989 TFLOP/s), the
     ``clip_norm`` launches (zeroed just before, read just after: one a
-    step), finite metrics and params, and the masks' density within 1%
-    of p. The steps run with the allocator's expandable segments (from an
-    empty cache): without them, on an NVIDIA H100 80GB HBM3 at 700 W, the
-    aggregate's per-leaf f64 temporaries of the 1.1e9-element expert
+    step), the threefry launches (one ``threefry_sample`` and one
+    ``threefry_combine`` a leaf a step), finite metrics and params, and
+    the masks' density within 1% of p. The steps run with the allocator's
+    expandable segments (from an empty cache): without them, on an NVIDIA
+    H100 80GB HBM3 at 700 W and before the aggregate was one kernel a
+    leaf, its per-leaf f64 temporaries of the 1.1e9-element expert
     tensors left 19.7 GiB reserved but free in pieces, and an 8.2 GiB
-    block found no room below the predicted peak. Then one step of the reduced whisper-tiny and qwen2-vl-72b on
-    the card against the CPU. Returns the granite steps' launches."""
+    block found no room below the predicted peak. Then one step of the
+    reduced whisper-tiny and qwen2-vl-72b on the card against the CPU.
+    Returns the granite steps' launches."""
     import torch
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4153,6 +4219,7 @@ def _granite_steps(predicted: dict) -> int:
     from repro_torch.core import randk
     from repro_torch.data import make_lm_sequences
     from repro_torch.kernels.clip_norm import kernel as clip_kernel
+    from repro_torch.kernels.threefry import kernel as threefry
     from repro_torch.launch.serve import cut_depth
     from repro_torch.launch.steps import make_pfels_train_step
     from repro_torch.models import transformer as T
@@ -4174,14 +4241,19 @@ def _granite_steps(predicted: dict) -> int:
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     clip_kernel.reset_launch_counts()
-    secs, metrics = [], []
+    secs, metrics, draws = [], [], []
     for batch, k in zip(batches, keys):
+        threefry.reset_launch_counts()
         t0 = time.perf_counter()
         params, m = step(params, batch, k)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        draws.append(dict(threefry.LAUNCHES))
         metrics.append({n: float(v) for n, v in m.items()})
     launches = clip_kernel.LAUNCHES["clip_norm"]
+    # a step's masks and its aggregate: one launch a leaf each
+    n_leaves = len(tree_leaves(params))
+    draws_want = {"threefry_sample": n_leaves, "threefry_combine": n_leaves}
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     finite_params = all(bool(torch.isfinite(x).all())
@@ -4217,6 +4289,8 @@ def _granite_steps(predicted: dict) -> int:
               / (s_step * PEAK_BF16_FLOP_PER_S),
           "launches": {"clip_norm": launches},
           "launches_expected": {"clip_norm": GRANITE_STEPS},
+          "threefry_launches_by_step": draws,
+          "threefry_launches_expected_a_step": draws_want,
           "metrics": metrics, "finite_metrics": finite,
           "finite_params": finite_params, "mask_density": density,
           "nvidia_smi": nvidia_smi()})
@@ -4226,6 +4300,9 @@ def _granite_steps(predicted: dict) -> int:
     if launches != GRANITE_STEPS:
         failures.append(f"{GRANITE_ARCH}: clip_norm launched {launches} "
                         f"times, expected {GRANITE_STEPS}")
+    if any(n != draws_want for n in draws):
+        failures.append(f"{GRANITE_ARCH}: threefry launched {draws} by "
+                        f"step, expected {draws_want} a step")
     if not (finite and finite_params):
         failures.append(f"{GRANITE_ARCH}: non-finite metrics or params")
     p = pfels.compression_ratio
@@ -4346,6 +4423,202 @@ def phase_transmit_timing():
               "r": r, "d": d, "M": m_ant, **_transmit_times(*args)})
         del args
         torch.cuda.empty_cache()
+
+
+# the f64 units and the f32/f64 converters of one H100 SM: instructions
+# a clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0)
+F64_PER_CLOCK_SM = 64
+CONVERSIONS_PER_CLOCK_SM = 16
+THREEFRY_P = 0.5           # the masks' Bernoulli p (the step's cell's)
+
+
+def threefry_sass():
+    """Instructions of each threefry kernel in the library's SASS
+    (``cuobjdump -sass``): all, f64 arithmetic (DADD, DMUL, DFMA) and
+    f32/f64 conversions (F2F with an F64 side), by kernel. Static counts:
+    both values a thread are inlined and both branches of each select are
+    counted."""
+    import re
+    from repro_torch.kernels import _build
+    lib = _build.library_path("threefry")
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            kind = re.search(r"(sample_kernel|combine_kernel)", m.group(1))
+            tmpl = re.search(r"sample_kernelILi(\d)E", m.group(1))
+            kinds = ("uniform", "bernoulli", "normal")
+            name = None if kind is None else (
+                f"sample_{kinds[int(tmpl.group(1))]}" if tmpl else "combine")
+            if name:
+                out[name] = {"instructions": 0, "f64": 0, "conversions": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                      ln)
+        if name is None or m is None:
+            continue
+        op = m.group(1)
+        out[name]["instructions"] += 1
+        if op.split(".")[0] in ("DADD", "DMUL", "DFMA"):
+            out[name]["f64"] += 1
+        if op.startswith("F2F") and "F64" in op:
+            out[name]["conversions"] += 1
+    return out
+
+
+def _threefry_bound(n_bytes, n_values, counts, sms, clock_hz):
+    """The least time of a threefry entry, ms: its bytes at the memory
+    rate, or its f64 instructions or its conversions at the SMs' rates
+    (counts are a thread's, two values; halved a value), the largest."""
+    t = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3}
+    if counts:
+        for k, rate in (("f64", F64_PER_CLOCK_SM),
+                        ("conversions", CONVERSIONS_PER_CLOCK_SM)):
+            t[k] = n_values * counts[k] / 2 / (rate * sms * clock_hz) * 1e3
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by], "bound_by": by, "terms_ms": t}
+
+
+def phase_threefry(timed: bool):
+    """The threefry kernels' ``sample`` (bernoulli, the masks; normal and
+    uniform) and ``combine`` (the aggregate's leaf) at zamba2-2.7b's
+    largest leaf, and the masks and the combine over its 57 leaves as the
+    production step runs them (one launch a leaf each), every output
+    against the plain route's bits on the card; any mismatch raises. With
+    ``timed`` (``--time-threefry``), each also beside its bound and the
+    plain route's time."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.threefry import kernel, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    phase = "threefry_timing" if timed else "threefry_bits"
+    t0 = time.perf_counter()
+    _build.build([kernel.SOURCE])
+    if timed:
+        props = torch.cuda.get_device_properties(0)
+        clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+        sass = threefry_sass()
+        emit({"phase": phase, "tree": ROOT,
+              "build_s": time.perf_counter() - t0,
+              "ptxas": _ptxas(kernel.SOURCE,
+                              r"(sample_kernelILi\d|combine_kernel)"),
+              "sass": sass, "sms": props.multi_processor_count,
+              "clock_max_sm_mhz": clock_mhz})
+
+    def measure(fast, plain, n_bytes, n_values, name, reps, cold):
+        """The timed line's readings: the kernel's time (warm, and cold
+        with ``cold``), the plain route's, the bound and its share."""
+        if not timed:
+            return {}
+        out = {"kernel_ms": time_ms(fast, reps=reps, warmup=1 + 2 * cold)}
+        if cold:
+            out["cold_ms"] = cold_ms(fast, reps=10)
+        out["plain_ms"] = time_ms(plain, reps=1 + 2 * cold, warmup=1)
+        if cold:
+            out["device_kernels_per_call"] = device_kernels(fast)
+        out.update(_threefry_bound(n_bytes, n_values, sass.get(name),
+                                   props.multi_processor_count,
+                                   clock_mhz * 1e6))
+        out["share_of_bound"] = out["bound_ms"] / out["kernel_ms"]
+        return out
+
+    shapes = [tuple(x.shape) for x in
+              tree_leaves(T.init_shapes(get_config("zamba2-2.7b")))]
+    keys_m, keys_n = prng.split(prng.PRNGKey(7, "cuda"), 2 * len(shapes)
+                                ).reshape(2, len(shapes), 2)
+    beta = torch.tensor(0.031, device="cuda")
+    scale = 1.0 / beta
+    n = max(math.prod(s) for s in shapes)
+    x = _randn((n,), 31, scale=1e-3)
+    m = prng.bernoulli(keys_m[0], THREEFRY_P, (n,))
+    entries = {
+        "bernoulli": (lambda: kernel.sample(keys_m[0], n, "bernoulli",
+                                            THREEFRY_P),
+                      lambda: ref.sample_ref(keys_m[0], n, "bernoulli",
+                                             THREEFRY_P),
+                      kernel.sample_work(1, n, "bernoulli")[0],
+                      "sample_bernoulli"),
+        "normal": (lambda: kernel.sample(keys_n[0], n, "normal"),
+                   lambda: ref.sample_ref(keys_n[0], n, "normal"),
+                   kernel.sample_work(1, n, "normal")[0], "sample_normal"),
+        "uniform": (lambda: kernel.sample(keys_n[0], n, "uniform"),
+                    lambda: ref.sample_ref(keys_n[0], n, "uniform"),
+                    kernel.sample_work(1, n, "uniform")[0],
+                    "sample_uniform"),
+        "combine": (lambda: kernel.combine(x, m, keys_n[0], beta, 1.3,
+                                           scale),
+                    lambda: ref.combine_ref(x, m, keys_n[0], beta, 1.3,
+                                            scale),
+                    kernel.combine_work(n)[0], "combine")}
+    failures = []
+    for label, (fast, plain, n_bytes, name) in entries.items():
+        got, want = fast(), plain()
+        bad = _bit_mismatches(got, want)
+        del got, want
+        emit({"phase": phase, "entry": label, "shape": "largest leaf",
+              "n": n, "mismatches": bad,
+              **measure(fast, plain, n_bytes, n, name, 20, True)})
+        failures += [f"{label}: {bad} mismatches"] if bad else []
+        torch.cuda.empty_cache()
+    del x, m
+    torch.cuda.empty_cache()
+    # the step's 57 leaves: the masks, then the combine, a launch a leaf
+    xs = [_randn(s, 40 + i, scale=1e-3) for i, s in enumerate(shapes)]
+    total = sum(math.prod(s) for s in shapes)
+
+    def masks():
+        return [kernel.sample(k, math.prod(s), "bernoulli", THREEFRY_P)
+                .reshape(s) for k, s in zip(keys_m, shapes)]
+
+    def masks_plain():
+        return [ref.sample_ref(k, math.prod(s), "bernoulli", THREEFRY_P)
+                .reshape(s) for k, s in zip(keys_m, shapes)]
+
+    ms = masks()
+    bad = sum(_bit_mismatches(a, ref.sample_ref(
+        k, math.prod(s), "bernoulli", THREEFRY_P).reshape(s))
+        for a, k, s in zip(ms, keys_m, shapes))
+
+    def combine():
+        return [kernel.combine(a, b, k, beta, 1.3, scale)
+                for a, b, k in zip(xs, ms, keys_n)]
+
+    def combine_plain():
+        return [ref.combine_ref(a, b, k, beta, 1.3, scale)
+                for a, b, k in zip(xs, ms, keys_n)]
+
+    bad_c = sum(_bit_mismatches(kernel.combine(a, b, k, beta, 1.3, scale),
+                                ref.combine_ref(a, b, k, beta, 1.3, scale))
+                for a, b, k in zip(xs, ms, keys_n))
+    torch.cuda.empty_cache()
+    for label, fast, plain, n_bytes, name, bad_n in (
+            ("bernoulli", masks, masks_plain,
+             sum(kernel.sample_work(1, math.prod(s), "bernoulli")[0]
+                 for s in shapes), "sample_bernoulli", bad),
+            ("combine", combine, combine_plain,
+             sum(kernel.combine_work(math.prod(s))[0] for s in shapes),
+             "combine", bad_c)):
+        emit({"phase": phase, "entry": label,
+              "shape": f"all {len(shapes)} leaves", "n": total,
+              "mismatches": bad_n,
+              **measure(fast, plain, n_bytes, total, name, 5, False)})
+        failures += [f"{label} over the leaves: {bad_n} mismatches"] \
+            if bad_n else []
+        torch.cuda.empty_cache()
+    del xs, ms
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 TRACING_PAIRS = 3          # alternated untraced and traced units a kind
@@ -4548,6 +4821,10 @@ def main(argv=None) -> int:
                          "path's 3 rounds and one profiled round (no "
                          "result line): the comparison with a parent "
                          "tree")
+    ap.add_argument("--time-threefry", action="store_true",
+                    help="only time the threefry kernels at zamba2-2.7b's "
+                         "largest leaf and over its 57 leaves beside their "
+                         "bounds and the plain route (no result line)")
     ap.add_argument("--time-tracing", action="store_true",
                     help="only what the program's spans cost, off and on, "
                          "at the zamba2-2.7b step and prefill, and each "
@@ -4580,6 +4857,10 @@ def main(argv=None) -> int:
         phase_main_path(profile=True)
         print(smi, flush=True)
         return 0
+    if args.time_threefry:
+        phase_threefry(timed=True)
+        print(smi, flush=True)
+        return 0
     if args.time_tracing:
         phase_tracing_timing()
         print(smi, flush=True)
@@ -4607,6 +4888,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     phase_draws()
+    phase_threefry(timed=False)
     predicted = phase_dryrun()
     summary = phase_kernels()
     launches, main_info = phase_main_path(args.profile)

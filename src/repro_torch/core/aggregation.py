@@ -17,6 +17,7 @@ from repro_torch.core import channel as chan
 from repro_torch.core.clipping import row_norms
 from repro_torch.core.compressors import base as comp_base
 from repro_torch.kernels.pfels_transmit import ref as transmit_ref
+from repro_torch.kernels.threefry import kernel as threefry
 from repro_torch.launch import op_cost
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -181,14 +182,26 @@ def pfels_production_aggregate(update_tree, masks, *, beta, r: int,
     ``group=None`` is the single-client route. There, as XLA's CPU backend
     computes the reference's ``x * beta + sigma0 * m * z``, the first
     product and the add fuse into one FMA over the rounded noise product,
-    so the result is the reference's bit for bit where the draw is."""
+    so the result is the reference's bit for bit where the draw is. beta
+    is an f32 scalar there (a number is rounded to one, as JAX rounds it).
+    On the card (and on ``meta``) a leaf is one launch of
+    ``kernels.threefry.combine``, which takes f32 leaves and bool masks:
+    the noise drawn in registers, the same bits."""
     leaves = tree_leaves(update_tree)
     keys = prng.split(noise_key, len(leaves))
+    if group is None and not isinstance(beta, torch.Tensor):
+        beta = torch.full((), beta, dtype=torch.float32,
+                          device=noise_key.device)
     scale = 1.0 / (r * beta)
     if unbiased_rescale:
         scale = scale / torch.full_like(scale, compression_p)
     out = []
     for x, m, k in zip(leaves, tree_leaves(masks), keys):
+        if group is None and x.device.type != "cpu":
+            with tracing.span("aggregate.combine"):
+                out.append(threefry.combine(x.contiguous(), m.contiguous(),
+                                            k, beta, sigma0, scale))
+            continue
         mf = m.to(x.dtype)
         with tracing.span("aggregate.noise"):
             z = prng.normal(k, tuple(x.shape)).to(x.dtype)

@@ -151,11 +151,13 @@ def make_pfels_train_step(cfg: ModelConfig, pfels: PFELSConfig, d: int, *,
             with tracing.span("masks"):
                 masks = randk.mask_tree(km, update, pfels.compression_ratio)
             # the energy's sum of squares before the aggregate: the masked
-            # update is a temporary of one leaf at a time
+            # update is a temporary of one leaf at a time (a generator, so
+            # that no loop variable keeps a view of the flat update alive
+            # through the apply)
             with tracing.span("energy"):
-                sq = 0
-                for x, m in zip(tree_leaves(update), tree_leaves(masks)):
-                    sq = sq + torch.sum(torch.square(x * m.to(x.dtype)))
+                sq = sum(torch.sum(torch.square(x * m.to(x.dtype)))
+                         for x, m in zip(tree_leaves(update),
+                                         tree_leaves(masks)))
             with tracing.span("aggregate"):
                 delta = aggregation.pfels_production_aggregate(
                     update, masks, beta=beta, r=1, sigma0=sigma0,

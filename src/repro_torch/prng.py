@@ -9,9 +9,12 @@ the gains, the receiver noise, the minibatch indices and the init.
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words
 (``torch.uint32`` lacks most ops, so every word op masks with
 ``0xFFFFFFFF``). Keys are passed explicitly; nothing is global. All ops
-are plain tensor ops on the key's device. The samplers also take a batch
-of keys of shape (M, 2) and then draw as ``jax.vmap`` over the keys
-would: one row a key.
+are plain tensor ops on the key's device, but for ``uniform`` (f32,
+[0, 1)), ``bernoulli`` and ``normal`` (f32) on the card: there each is
+one launch of a hand-written kernel (``kernels/threefry``, this module's
+code op for op in registers, the same bits). The samplers also take a
+batch of keys of shape (M, 2) and then draw as ``jax.vmap`` over the
+keys would: one row a key.
 
 Every sampler matches bit for bit on the CPU, and the same ops give the
 same bits on the GPU:
@@ -126,6 +129,17 @@ def _hash_counts(key: torch.Tensor, n: int,
         hi = min(n, half + b)
         out[..., half + a:hi] = o1[..., :hi - half - a]
     return out
+
+
+def _sample(key: torch.Tensor, n: int, kind: str, p=None) -> torch.Tensor:
+    """``uniform`` (f32, [0, 1)), ``bernoulli`` or ``normal`` (f32) of n
+    values a key through ``kernels.threefry``: the code below on the CPU,
+    one kernel launch on the card (the same bits), the output's shape on
+    ``meta``."""
+    # imported here: the wrapper's plain version (its ref.py) is this
+    # module's own code
+    from repro_torch.kernels.threefry import kernel
+    return kernel.sample(key, n, kind, p)
 
 
 # ------------------------------------------------------------------ keys
@@ -304,7 +318,7 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     elif dtype != torch.float32:
         raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     elif minval == 0.0 and maxval == 1.0:
-        u = _hash_counts(key, math.prod(shape), _bits_to_unit, torch.float32)
+        u = _sample(key, math.prod(shape), "uniform")
     else:
         u = _hash_counts(key, math.prod(shape),
                          lambda b: _affine(_bits_to_unit(b), minval, maxval),
@@ -701,8 +715,7 @@ def normal(key: torch.Tensor, shape: Shape = (),
         u = _uniform_bf16(key, math.prod(shape), _NORMAL_LO_BF16, 1.0)
         z = _rnd(_rnd(_erfinv(u.float())).float() * _SQRT2_BF16)
     elif dtype == torch.float32:
-        z = _hash_counts(key, math.prod(shape), _bits_to_normal,
-                         torch.float32)
+        z = _sample(key, math.prod(shape), "normal")
     else:
         raise TypeError(f"normal draws float32 or bfloat16, not {dtype}")
     return z.reshape(key.shape[:-1] + shape)
@@ -746,8 +759,9 @@ def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
 def bernoulli(key: torch.Tensor, p: float, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.bernoulli`` (bool): ``uniform(key, shape) < p``, with
     p rounded to f32 first as JAX does."""
-    u = uniform(key, shape)
-    return u < torch.tensor(_f32(p), dtype=torch.float32, device=u.device)
+    shape = _shape(shape)
+    return _sample(key, math.prod(shape), "bernoulli", p).reshape(
+        key.shape[:-1] + shape)
 
 
 def _bits_to_gumbel(b: torch.Tensor) -> torch.Tensor:

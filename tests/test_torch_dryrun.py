@@ -37,11 +37,14 @@ from repro_torch.kernels.flash_attn import kernel as flash_kernel
 from repro_torch.kernels.pfels_transmit import kernel as pfels_kernel
 from repro_torch.kernels.randk_gather import kernel as gather_kernel
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.threefry import kernel as threefry_kernel
+from repro_torch.kernels.threefry import ref as threefry_ref
 from repro_torch.launch import dryrun, op_cost, roofline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_pfels_train_step
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 SMALL_SHAPES = (InputShape("t_train", 128, 8, "train"),
                 InputShape("t_prefill", 256, 4, "prefill"),
@@ -195,16 +198,70 @@ def _reduced_step(device):
     return c, start
 
 
-def test_peak_is_the_same_on_meta_and_on_the_cpu():
-    """One reduced zamba2-2.7b step: the meta run (the clip kernel's meta
-    route) and the CPU run (its plain version) hold the same live bytes
-    at their peak, and the same arguments."""
+def _card_aggregate(update_tree, masks, *, beta, r, sigma0, noise_key,
+                    unbiased_rescale=False, compression_p=1.0):
+    """The single-client production aggregate as the card runs it (one
+    ``threefry.combine`` a leaf), for a CPU run; beta an f32 tensor."""
+    leaves = tree_leaves(update_tree)
+    keys = prng.split(noise_key, len(leaves))
+    scale = 1.0 / (r * beta)
+    if unbiased_rescale:
+        scale = scale / torch.full_like(scale, compression_p)
+    return tree_unflatten(update_tree, [
+        threefry_kernel.combine(x, m, k, beta, sigma0, scale)
+        for x, m, k in zip(leaves, tree_leaves(masks), keys)])
+
+
+def _threefry_as_on_the_card(monkeypatch):
+    """The CPU run as the card allocates for the threefry kernels: the
+    aggregate takes the wrapper, and the wrapper's plain versions run
+    with the counter suspended, their results copied in under it, so
+    that it counts each kernel's output and not the temporaries of the
+    element-wise ops that the kernel keeps in registers."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from repro_torch.core import aggregation
+    monkeypatch.setattr(aggregation, "pfels_production_aggregate",
+                        _card_aggregate)
+    for name in ("sample_ref", "combine_ref"):
+        def quiet(*args, _plain=getattr(threefry_ref, name), **kwargs):
+            with _disable_current_modes():
+                out = _plain(*args, **kwargs)
+            return out.clone()
+        monkeypatch.setattr(threefry_ref, name, quiet)
+
+
+def test_peak_is_the_same_on_meta_and_on_the_cpu(monkeypatch):
+    """One reduced zamba2-2.7b step: the meta run (the kernels' meta
+    routes) and the CPU run (their plain versions) hold the same live
+    bytes at their peak, and the same arguments. The CPU run counts the
+    threefry kernels' outputs alone, and the plain clip in full: the
+    step's peak lies in the clip, where the plain version holds one more
+    allocation than the kernel, its (1,) scale, rounded to 512 bytes. The
+    kernels' charges on meta are their ``work``'s bytes."""
+    cfg = reduced_config("zamba2-2.7b")
     meta, meta_start = _reduced_step("meta")
+    _threefry_as_on_the_card(monkeypatch)
     cpu, cpu_start = _reduced_step("cpu")
     assert meta_start == cpu_start > 0
-    assert meta.peak == cpu.peak > meta_start
-    assert meta.kernels["clip_norm"]["launches"] == 1
-    assert "clip_norm" not in cpu.kernels   # the CPU ran the plain version
+    assert cpu.peak - 512 == meta.peak > meta_start
+    sizes = [x.numel() for x in tree_leaves(T.init_shapes(cfg))]
+    d = sum(sizes)
+    assert meta.kernels["clip_norm"] == {
+        "launches": 1, "bytes": clip_kernel.work(-(-d // 128) * 128, 4)[0],
+        "flops": clip_kernel.work(-(-d // 128) * 128, 4)[1]}
+    # the masks, a draw a leaf (the channel's gains and power limits are
+    # an exponential and a ranged uniform, which stay plain ops), and the
+    # aggregate, a combine a leaf
+    assert meta.kernels["threefry_sample"] == {
+        "launches": len(sizes), "flops": 0.0, "bytes": sum(
+            threefry_kernel.sample_work(1, n, "bernoulli")[0]
+            for n in sizes)}
+    assert meta.kernels["threefry_combine"] == {
+        "launches": len(sizes), "flops": 0.0, "bytes": sum(
+            threefry_kernel.combine_work(n)[0] for n in sizes)}
+    # the CPU ran the plain versions
+    assert not {"clip_norm", "threefry_sample", "threefry_combine"} & set(
+        cpu.kernels)
 
 
 # ---------------------------------------------------- wrappers on meta
@@ -247,6 +304,18 @@ def _wrapper_cases():
                       -t((h,), device=dev), t((b, s, n), device=dev),
                       t((b, s, n), device=dev)), {"chunk": chunk},
          ssd_kernel.work(b, s, h, p, n, chunk, 4)),
+        ("threefry_sample", threefry_kernel.sample,
+         lambda dev: (prng.split(prng.PRNGKey(5, dev), 3), 721, "normal"),
+         {}, threefry_kernel.sample_work(3, 721, "normal")),
+        ("threefry_sample", threefry_kernel.sample,
+         lambda dev: (prng.PRNGKey(5, dev), 720, "bernoulli", 0.3),
+         {}, threefry_kernel.sample_work(1, 720, "bernoulli")),
+        ("threefry_combine", threefry_kernel.combine,
+         lambda dev: (t((3, 241), device=dev),
+                      torch.ones((3, 241), dtype=torch.bool, device=dev),
+                      prng.PRNGKey(5, dev), t((), device=dev), 0.7,
+                      t((), device=dev)),
+         {}, threefry_kernel.combine_work(3 * 241)),
         ("flash_attention_fwd", flash_kernel.flash_attention_fwd,
          lambda dev: (t((2, 40, 4, 64), bf16, dev),
                       t((2, 48, 2, 64), bf16, dev),
@@ -278,7 +347,7 @@ def test_wrappers_on_meta_return_the_plain_shapes_and_charge_their_work(
     fn(*make("meta"), **kw)
     assert all(sum(mod.LAUNCHES.values()) == 0 for mod in (
         pfels_kernel, clip_kernel, gather_kernel, comb_kernel, ssd_kernel,
-        flash_kernel))
+        flash_kernel, threefry_kernel))
 
 
 def test_flash_work_counts_the_pairs_the_mask_keeps():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (the PFELS transmit pair, the SSD
 chunk scan, the flash-attention forward, the l2-norm clip, the rand-k row
-gather and the AirComp combine): each against its plain torch version,
+gather, the AirComp combine and the threefry draws): each against its
+plain torch version,
 bit-identical run to run, counted, and refusing what it does not take. Every test needs a CUDA device and skips without one; this file
 imports neither JAX nor the reference, so it runs on a GPU machine that
 has only the port's dependencies:
@@ -18,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import prng
 from repro_torch.configs import BENCH_CNN_CIFAR, PFELSConfig, reduced_config
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, randk
 from repro_torch.data import make_federated_classification
 from repro_torch.fl import Trainer
 from repro_torch.kernels.aircomp_combine import kernel as comb_kernel
@@ -35,6 +36,8 @@ from repro_torch.kernels.randk_gather import ops as gather_ops
 from repro_torch.kernels.randk_gather import ref as gather_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.threefry import kernel as threefry_kernel
+from repro_torch.kernels.threefry import ref as threefry_ref
 from repro_torch.models import cnn
 from repro_torch.models import transformer as T
 
@@ -898,3 +901,148 @@ def test_row_kernels_run_one_device_kernel_a_call(cuda):
     assert _device_kernels(lambda: clip_kernel.clip_norm(x, 0.5)) == 1
     assert _device_kernels(
         lambda: comb_kernel.aircomp_combine(x, y, idx, 0.5)) == 1
+
+
+# ------------------------------------------------------------- threefry
+
+# 1 to 3 values (one pair, the padded count), a small leaf, one past the
+# CPU route's chunk, the zamba2-2.7b step's largest leaf
+THREEFRY_SIZES = [1, 2, 3, 720, 2 ** 24 + 1, 240_721_920]
+
+
+def _same_bits(got, want):
+    """The card's tensor and the CPU's hold the same bits."""
+    got = got.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if want.dtype == torch.bool:
+        return torch.equal(got, want)
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", THREEFRY_SIZES)
+@pytest.mark.parametrize("kind", threefry_kernel.KINDS)
+def test_threefry_sample_matches_cpu_bit_for_bit(cuda, kind, n):
+    """One launch; the CPU route's bits (``prng``'s code), from a key that
+    is a row of ``split``'s output, as the step's keys are."""
+    keys = prng.split(prng.PRNGKey(n % 997, "cpu"), 3)
+    before = threefry_kernel.LAUNCHES["threefry_sample"]
+    got = threefry_kernel.sample(keys.to(cuda)[1], n, kind, 0.3)
+    torch.cuda.synchronize()
+    assert threefry_kernel.LAUNCHES["threefry_sample"] == before + 1
+    assert _same_bits(got, threefry_ref.sample_ref(keys[1], n, kind, 0.3))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0, 0.3])
+def test_threefry_bernoulli_thresholds(cuda, p):
+    key = prng.PRNGKey(21, "cpu")
+    got = prng.bernoulli(key.to(cuda), p, (3, 4101))
+    assert _same_bits(got, prng.bernoulli(key, p, (3, 4101)))
+    if p in (0.0, 1.0):
+        assert bool(got.all()) == (p == 1.0) and bool(got.any()) == (p == 1.0)
+
+
+@pytest.mark.parametrize("kind", threefry_kernel.KINDS)
+def test_threefry_batch_of_strided_keys(cuda, kind):
+    """M keys, 4 words apart (a slice of ``split``'s output, as the gamma
+    sampler passes them), n 1 and 5: one row a key, the CPU's bits."""
+    ks = prng.split(prng.PRNGKey(4, "cpu"), 2 * 3001).reshape(3001, 2, 2)
+    for n in (1, 5):
+        got = threefry_kernel.sample(ks.to(cuda)[:, 1], n, kind, 0.5)
+        assert _same_bits(got, threefry_ref.sample_ref(ks[:, 1], n, kind,
+                                                       0.5))
+
+
+def _threefry_tree(device):
+    """Odd-sized leaves: signed zeros, negative and subnormal x, a leaf of
+    subnormals, one past the CPU route's chunk; masks Bernoulli(0.5), all
+    0 and all 1."""
+    g = torch.Generator().manual_seed(9)
+    a = torch.randn((3, 241), generator=g)
+    a[0, :6] = torch.tensor([0.0, -0.0, -3.5, 1e-40, -1e-42, 2.0 ** -149])
+    tree = {"a": a, "b": torch.randn((1025,), generator=g) * 1e-38,
+            "c": -torch.rand((7,), generator=g),
+            "d": torch.randn((2 ** 24 + 1,), generator=g) * 1e-3}
+    masks = randk.mask_tree(prng.PRNGKey(8, "cpu"), tree, 0.5)
+    masks["b"] = torch.zeros_like(masks["b"])
+    masks["c"] = torch.ones_like(masks["c"])
+    move = {k: v.to(device) for k, v in tree.items()}
+    return move, {k: v.to(device) for k, v in masks.items()}
+
+
+@pytest.mark.parametrize("sigma0", [1.3, 1e-41])
+@pytest.mark.parametrize("unbiased", [False, True])
+@pytest.mark.parametrize("number_beta", [False, True])
+def test_production_aggregate_on_card_matches_cpu(cuda, unbiased, sigma0,
+                                                  number_beta):
+    """The single-client production aggregate: one ``threefry_combine``
+    launch a leaf, the CPU route's bits (sigma0 1e-41, subnormal in f32,
+    puts the FMA's sums among the subnormals; a number beta is rounded
+    to f32 on both routes)."""
+    key, beta = prng.PRNGKey(6, "cpu"), torch.tensor(7.3)
+    kw = dict(r=1, sigma0=sigma0, unbiased_rescale=unbiased,
+              compression_p=0.3)
+    tree, masks = _threefry_tree(cuda)
+    before = threefry_kernel.LAUNCHES["threefry_combine"]
+    got = aggregation.pfels_production_aggregate(
+        tree, masks, beta=7.3 if number_beta else beta.to(cuda),
+        noise_key=key.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert threefry_kernel.LAUNCHES["threefry_combine"] == before + len(tree)
+    tree, masks = _threefry_tree("cpu")
+    want = aggregation.pfels_production_aggregate(
+        tree, masks, beta=7.3 if number_beta else beta, noise_key=key,
+        **kw)
+    for name in tree:
+        assert _same_bits(got[name], want[name]), name
+
+
+def test_threefry_mask_tree_is_one_launch_a_leaf(cuda):
+    tree, _ = _threefry_tree(cuda)
+    key = prng.PRNGKey(8, cuda)
+    before = threefry_kernel.LAUNCHES["threefry_sample"]
+    got = randk.mask_tree(key, tree, 0.5)
+    assert threefry_kernel.LAUNCHES["threefry_sample"] == before + len(tree)
+    want = randk.mask_tree(key.cpu(), _threefry_tree("cpu")[0], 0.5)
+    assert all(_same_bits(got[k], want[k]) for k in tree)
+
+
+def test_threefry_runs_one_device_kernel_a_call(cuda):
+    key = prng.split(prng.PRNGKey(3, cuda), 2)[1]
+    for kind in threefry_kernel.KINDS:
+        assert _device_kernels(lambda kind=kind: threefry_kernel.sample(
+            key, 100_003, kind, 0.3)) == 1
+    x = torch.randn((100_003,), device=cuda)
+    m = prng.bernoulli(key, 0.3, (100_003,))
+    one = torch.ones((), device=cuda)
+    assert _device_kernels(lambda: threefry_kernel.combine(
+        x, m, key, one, 1.3, one)) == 1
+
+
+def test_threefry_is_the_same_run_to_run(cuda):
+    key = prng.PRNGKey(12, cuda)
+    x = torch.randn((4097,), device=cuda)
+    m = prng.bernoulli(key, 0.5, (4097,))
+    one = torch.full((), 0.5, device=cuda)
+    a = threefry_kernel.combine(x, m, key, one, 1.3, one)
+    b = threefry_kernel.combine(x, m, key, one, 1.3, one)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_threefry_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    x = torch.ones((5, 3), device=cuda)
+    m = torch.ones((5, 3), dtype=torch.bool, device=cuda)
+    key, one = prng.PRNGKey(1, cuda), torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        threefry_kernel.combine(x.t(), m.t(), key, one, 1.0, one)
+    with pytest.raises(TypeError, match="float32"):
+        threefry_kernel.combine(x.double(), m, key, one, 1.0, one)
+    with pytest.raises(TypeError, match="bool"):
+        threefry_kernel.combine(x, m.float(), key, one, 1.0, one)
+    with pytest.raises(ValueError, match="several devices"):
+        threefry_kernel.combine(x, m.cpu(), key, one, 1.0, one)
+    with pytest.raises(ValueError, match="several devices"):
+        threefry_kernel.combine(x, m, key, one.cpu(), 1.0, one)
+    with pytest.raises(ValueError, match="2\\^32"):
+        threefry_kernel.sample(key, 2 ** 32, "uniform")
+    with pytest.raises(ValueError, match="key"):
+        threefry_kernel.sample(key.int(), 4, "normal")
